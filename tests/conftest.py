@@ -45,6 +45,10 @@ def pytest_configure(config):
         "slow: multi-process / TP / campaign-scale tests — the heavy tier. "
         "Fast tier: pytest -m 'not slow' (make test-fast).",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device; skips without one (tests/test_torch_gpu.py).",
+    )
 
 
 @pytest.fixture
