@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's greedy serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout, one card
 
@@ -10,43 +10,71 @@ Phases, in order; any failure exits non-zero:
 2. Build: compile ``ss_asr_tpu_torch/csrc/*.cu`` for sm_90a (timed).
 3. Kernels against their plain PyTorch versions at the flagship width
    (conf/default.yaml asr.mdl: listener 4 x 256 per direction, speller
-   2 x 256, attention 128, 40 mels, V = 50; char-LM 2 x 128), B = 16,
-   seeded random weights:
-   * lstm_fwd on the four listener layers' shapes (T = 512/256/128/64),
-     both directions, ragged lengths including 0 and 1: y and cs within
-     1e-4 of the plain loop;
-   * greedy_decode and greedy_decode_lm on listener output: the tokens of
-     the plain decode, except that a row may diverge at a step where the
-     plain decode's top-2 score gap is below 1e-4 (the rest of that row is
-     then not compared); at most 2 such rows of 16; and greedy_decode with
-     a large EOS bias, so every row takes the early exit at step 0.
+   2 x 256, attention 128, 40 mels, V = 50; char-LM 2 x 128), seeded random
+   weights:
+   * lstm_fwd on the four listener layers' shapes (B = 16, T = 512/256/
+     128/64), both directions, ragged lengths including 0 and 1: y and cs
+     within 1e-4 of the plain loop;
+   * greedy_decode and greedy_decode_lm on listener output (B = 16, S =
+     64): the tokens of the plain decode, except that a row may diverge at
+     a step where the plain decode's top-2 score gap is below 1e-4 (the
+     rest of that row is then not compared); at most 2 such rows of 16;
+     and greedy_decode with a large EOS bias, so every row takes the early
+     exit at step 0;
+   * beam_decode and beam_decode_lm (K = 3 and 8, B = 16, S = 64) against
+     beam_scan_plain: tokens and parents by the same near-tie rule (the
+     gap is the smallest between neighbours among the K + 1 best
+     candidates, replayed along the plain path).  A divergent row whose two
+     candidates a float64 replay of the plain path puts within 4 float32
+     ulps and within 1e-4 of each other is a float32 tie: at most 4 such
+     rows of 16, and at most 2 other near-tie rows.  Final scores within 1e-3, done flags and
+     lengths equal on the rows that never diverged; on every row the
+     kernel's own path, replayed through the plain step, has each pick
+     within 1e-3 of the step's K best and ends at the kernel's scores
+     (within 1e-3), done flags and lengths.  With an EOS bias of +50 every
+     beam ends within two steps, equal to the plain frontier;
+   * spell_fwd at the training flagship (B = 32, L = 48, S = 64) and the
+     alignment shape (B * n = 16, L = 16), teacher-forced (tf 1.0),
+     scheduled sampling (tf 0.9, draws from a seeded torch.Generator) and
+     greedy feedback: all seven streams within 1e-4 of the plain loop.
    Kernel and plain times are CUDA-event medians after a warm-up; the
    decode kernels are timed over all 200 steps (an EOS bias of -50 keeps
    every row decoding), which is the time the JSON line reports.
-4. The main path: seeded flagship ASR and char-LM checkpoints are written,
+4. Greedy serving: seeded flagship ASR and char-LM checkpoints are written,
    the port's HTTP server starts in-process in signal mode (sr 22050,
    max_batch 8, greedy), and concurrent POST /transcribe requests with
    seeded synthetic 1-5 s WAVs must all answer 200 with a text equal to a
    direct ``Transcriber.transcribe_signal_batch`` of the same signals; then
-   again with the LM at lm_weight 0.5.  After one warm-up request, the
-   kernels' launch counters are zeroed; they must be above 0 after the
-   timed requests.
-5. One JSON line of kernels, the nvidia-smi line, and last the contract
+   again with the LM at lm_weight 0.5.
+5. Serving under conf/default.yaml's decode settings (beam 3; with the LM,
+   weight 0.5): the same concurrent requests without and with the LM, then
+   with the LM ``?detail=1&nbest=3``, ``?long=1`` on a seeded 45 s signal,
+   one ``/stream`` session and one ``/reload`` of a new checkpoint; every
+   reply 200 and equal to the direct ``Transcriber`` call, which is made
+   before the server starts.
+   Each serving path (each phase's batch, each route) zeroes the kernels'
+   launch counters just before its requests (after one warm-up request)
+   and reads them just after its last reply; every kernel the path runs
+   must have launched, and the JSON line's launches sum these counts.
+6. One JSON line of kernels, the nvidia-smi line, and last the contract
    line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 import wave
 from concurrent.futures import ThreadPoolExecutor
@@ -54,13 +82,21 @@ from concurrent.futures import ThreadPoolExecutor
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 B = 16
-LISTENER_T = (512, 256, 128, 64)  # frames into each listener layer at T = 512
+FRAMES = 512  # fbank frames into the listener: S = 64 encoder steps
+DEVICE = "cuda"
 LSTM_TOL = 1e-4
 NEAR_TIE = 1e-4
 MAX_NEAR_TIE_ROWS = 2
+MAX_F32_TIE_ROWS = 4
+F32_TIE_ULPS = 4
 MAX_STEPS = 200
 SR = 22050
 N_REQUESTS = 8
+BEAM_WIDTHS = (3, 8)
+SCORE_TOL = 1e-3
+SPELL_TOL = 1e-4
+SPELL_SHAPES = ((32, 48), (16, 16))  # (B, L): the training flagship, the alignment pass
+LONG_SECONDS = 45.0
 
 
 def fail(msg: str) -> None:
@@ -96,15 +132,17 @@ def check_lstm(torch, rng, asr_tree):
 
     from ss_asr_tpu_torch.ops.kernels import lstm as klstm
 
-    H = 256
+    H = asr_tree["encoder"]["blstm4"]["fwd"]["w_hh"].shape[0]
     err_max, ms, plain_ms = 0.0, 0.0, 0.0
-    for layer, T in zip(("pblstm1", "pblstm2", "pblstm3", "blstm4"), LISTENER_T):
+    # frames into each listener layer: the pyramid halves time three times
+    for layer, T in zip(("pblstm1", "pblstm2", "pblstm3", "blstm4"),
+                        (FRAMES, FRAMES // 2, FRAMES // 4, FRAMES // 8)):
         p = asr_tree["encoder"][layer]
-        whh = torch.from_numpy(np.stack([p["fwd"]["w_hh"], p["bwd"]["w_hh"]])).cuda()
-        gx = torch.from_numpy(rng.standard_normal((2, T, B, 4 * H)).astype("float32")).cuda()
+        whh = torch.from_numpy(np.stack([p["fwd"]["w_hh"], p["bwd"]["w_hh"]])).to(DEVICE)
+        gx = torch.from_numpy(rng.standard_normal((2, T, B, 4 * H)).astype("float32")).to(DEVICE)
         lens = rng.integers(2, T + 1, size=B)
         lens[:3] = (0, 1, T)
-        lengths = torch.from_numpy(lens.astype("int32")).cuda()
+        lengths = torch.from_numpy(lens.astype("int32")).to(DEVICE)
         rev = (False, True)
         y, cs = klstm.lstm_fwd(gx, whh, lengths, rev)
         torch.cuda.synchronize()
@@ -153,28 +191,137 @@ def plain_gaps(torch, model, enc_h, comp_h, enc_lens, toks, lm, lm_weight):
     return torch.stack(gaps, 1).cpu().numpy()
 
 
-def compare_tokens(name, got, want, gaps):
-    """Rows must agree up to a first divergence at a plain near-tie.
-    Returns (near-tie rows, mask of the compared positions)."""
+def compare_tokens(name, got, want, gaps, f32_tie=None):
+    """Rows must agree up to a first divergence at a plain near-tie (gap
+    below NEAR_TIE).  got / want [B, T, ...] (a step may hold several ids),
+    gaps [B, T].  ``f32_tie(b, d)``, when given, is a second witness for row
+    b's divergence at step d: (True, why) when float64 arithmetic puts the
+    two candidates within float32 resolution (and NEAR_TIE) of each other,
+    so that neither order is wrong.  Such rows count against MAX_F32_TIE_ROWS, the other
+    divergent rows against MAX_NEAR_TIE_ROWS.  Returns (near-tie rows,
+    float32-tie rows, mask [B, T] of the compared steps)."""
     import numpy as np
 
-    near = 0
-    compared = np.ones(want.shape, bool)
+    near = ties = 0
+    compared = np.ones(want.shape[:2], bool)
+    neq = (got != want).reshape(want.shape[0], want.shape[1], -1).any(-1)
     for b in range(want.shape[0]):
-        diff = (got[b] != want[b]).nonzero()[0]
+        diff = neq[b].nonzero()[0]
         if diff.size == 0:
             continue
         d = int(diff[0])
         compared[b, d:] = False
         if gaps[b, d] >= NEAR_TIE:
-            fail(f"{name}: row {b} diverges at step {d} (kernel {got[b, d]}, plain "
-                 f"{want[b, d]}) where the plain top-2 gap is {gaps[b, d]:.3e}")
-        near += 1
-    print(f"{name}: tokens match the plain decode; near-tie rows {near} of {want.shape[0]}",
-          flush=True)
-    if near > MAX_NEAR_TIE_ROWS:
-        fail(f"{name}: {near} near-tie rows > {MAX_NEAR_TIE_ROWS}")
-    return near, compared
+            fail(f"{name}: row {b} diverges at step {d} (kernel {got[b, d].tolist()}, plain "
+                 f"{want[b, d].tolist()}) where the plain gap is {gaps[b, d]:.3e}")
+        tie, why = f32_tie(b, d) if f32_tie is not None else (False, "")
+        ties += tie
+        near += not tie
+        print(f"{name}: row {b} diverges at step {d}, plain gap {gaps[b, d]:.3e}"
+              f"{'; ' + why if why else ''}", flush=True)
+    print(f"{name}: tokens match the plain version; near-tie rows {near} (at most "
+          f"{MAX_NEAR_TIE_ROWS}), float32-tie rows {ties} (at most {MAX_F32_TIE_ROWS}) of "
+          f"{want.shape[0]}", flush=True)
+    if near > MAX_NEAR_TIE_ROWS or ties > MAX_F32_TIE_ROWS:
+        fail(f"{name}: {near} near-tie rows (at most {MAX_NEAR_TIE_ROWS}), {ties} float32-tie "
+             f"rows (at most {MAX_F32_TIE_ROWS})")
+    return near, ties, compared
+
+
+def replay_frontier(torch, model, lm, lm_weight, enc_h, comp_h, enc_lens, toks, parents):
+    """Replay a beam frontier's choices through the plain step.
+
+    toks / parents [T, B, K] are the choices of a frontier (the plain one's
+    or a kernel's).  Each step's candidates are computed as beam_scan_plain
+    computes them, in the dtype of ``model``, which enc_h and comp_h share,
+    and the given choices are taken whatever their rank; like
+    beam_scan_plain, the replay stops once every beam is done.  Returns
+    (candidates [B, steps run, K * V], final scores [B, K] with the terminal
+    EOS charge, done [B, K], hyp_len [B, K])."""
+    from ss_asr_tpu_torch.models import charlm as charlm_mod
+    from ss_asr_tpu_torch.models import las
+    from ss_asr_tpu_torch.ops import rnn
+    from ss_asr_tpu_torch.ops.kernels.beam import NEG_INF
+    from ss_asr_tpu_torch.vocab import EOS_ID, SOS_ID
+
+    T, Bn, K = toks.shape
+    dev, dtype, S = enc_h.device, enc_h.dtype, enc_h.shape[1]
+    V, H = model.cfg.vocab_size, model.cfg.decoder_state_size
+    encK, compK = enc_h.repeat_interleave(K, 0), comp_h.repeat_interleave(K, 0)
+    validK = las.attention_mask(enc_lens.to(dev), S).repeat_interleave(K, 0)
+
+    def forward(state, lm_state, last):
+        _, context = las.attention_step(model.attention, compK, encK, state[0][0], validK)
+        state, dec_out = las.speller_step(
+            model.decoder, torch.cat([rnn.embed(model.embed, last), context], -1), state)
+        logp = torch.log_softmax(rnn.linear(model.char_trans, dec_out), -1)
+        if lm is not None:
+            lm_logits, lm_state = charlm_mod.step(lm, last, lm_state)
+            logp = logp + lm_weight * torch.log_softmax(lm_logits, -1)
+        return state, lm_state, logp.view(Bn, K, V)
+
+    z = torch.zeros(Bn * K, H, dtype=dtype, device=dev)
+    state, lm_state = ((z, z), (z, z)), None
+    if lm is not None:
+        zl = torch.zeros(Bn * K, lm.cfg.hidden_size, dtype=dtype, device=dev)
+        lm_state = (zl, zl)
+    last = torch.full((Bn * K,), SOS_ID, dtype=torch.long, device=dev)
+    scores = torch.full((Bn, K), NEG_INF, dtype=dtype, device=dev)
+    scores[:, 0] = 0.0
+    done = torch.zeros(Bn, K, dtype=torch.bool, device=dev)
+    hyp_len = torch.zeros(Bn, K, dtype=torch.int32, device=dev)
+    pad_row = torch.full((V,), NEG_INF, dtype=dtype, device=dev)
+    pad_row[SOS_ID] = 0.0
+    rows = torch.arange(Bn, device=dev)[:, None] * K
+    cands = []
+    for t in range(T):
+        if bool(done.all()):
+            break
+        state, lm_state, logp = forward(state, lm_state, last)
+        logp = torch.where(done[:, :, None], pad_row, logp)
+        cand = (scores[:, :, None] + logp).reshape(Bn, K * V)
+        cands.append(cand)
+        parent, token = parents[t].long(), toks[t].long()
+        flat = (rows + parent).reshape(-1)
+        state = tuple(tuple(s[flat] for s in layer) for layer in state)
+        if lm is not None:
+            lm_state = tuple(s[flat] for s in lm_state)
+        ended = torch.gather(done, 1, parent) | (token == EOS_ID)
+        hyp_len = torch.gather(hyp_len, 1, parent) + (~ended).to(torch.int32)
+        done = ended
+        scores = torch.gather(cand, 1, parent * V + token)
+        last = token.reshape(-1)
+    _, _, logp = forward(state, lm_state, last)
+    scores = torch.where(done, scores, scores + logp[:, :, EOS_ID])
+    return torch.stack(cands, 1), scores, done, hyp_len
+
+
+def frontier_gaps(torch, cands, K, T):
+    """[B, T] numpy: the smallest gap between neighbours among each step's
+    K + 1 best candidates, which says how close the step came to choosing or
+    ordering its survivors otherwise (inf at the steps not run)."""
+    import numpy as np
+
+    top = torch.topk(cands, K + 1, dim=-1).values
+    gaps = np.full((cands.shape[0], T), np.inf)
+    gaps[:, : cands.shape[1]] = (top[..., :-1] - top[..., 1:]).min(-1).values.cpu().numpy()
+    return gaps
+
+
+def listener_memory(torch, rng, model, batch):
+    """Listener output of seeded fbanks [batch, FRAMES, feat], ragged
+    lengths (one row floors to zero listener steps)."""
+    from ss_asr_tpu_torch.models import las
+
+    feat = model.cfg.feature_dim
+    x = torch.from_numpy(rng.standard_normal((batch, FRAMES, feat)).astype("float32")).to(DEVICE)
+    lens = rng.integers(8, FRAMES + 1, size=batch)
+    lens[:2] = (3, FRAMES)
+    x_lens = torch.from_numpy(lens.astype("int32")).to(DEVICE)
+    with torch.inference_mode():
+        enc_h, enc_lens = las.listener_apply(model.encoder, x, x_lens)
+        comp_h = las.attention_precompute(model.attention, enc_h)
+    return enc_h, comp_h, enc_lens
 
 
 def check_decode(torch, rng, model, lm):
@@ -182,13 +329,7 @@ def check_decode(torch, rng, model, lm):
     from ss_asr_tpu_torch.ops.kernels import decode as kdec
     from ss_asr_tpu_torch.vocab import EOS_ID
 
-    x = torch.from_numpy(rng.standard_normal((B, 512, 40)).astype("float32")).cuda()
-    lens = rng.integers(8, 513, size=B)
-    lens[:2] = (3, 512)  # one row floors to zero listener steps
-    x_lens = torch.from_numpy(lens.astype("int32")).cuda()
-    with torch.inference_mode():
-        enc_h, enc_lens = las.listener_apply(model.encoder, x, x_lens)
-        comp_h = las.attention_precompute(model.attention, enc_h)
+    enc_h, comp_h, enc_lens = listener_memory(torch, rng, model, B)
     out = {}
     for name, use_lm in (("greedy_decode", False), ("greedy_decode_lm", True)):
         lm_ = lm if use_lm else None
@@ -198,7 +339,7 @@ def check_decode(torch, rng, model, lm):
             want = kdec.greedy_decode_plain(model, enc_h, comp_h, enc_lens, MAX_STEPS, lm_, 0.5)
             gaps = plain_gaps(torch, model, enc_h, comp_h, enc_lens, want, lm_, 0.5)
             got_np, want_np = got.cpu().numpy(), want.cpu().numpy()
-            near, compared = compare_tokens(name, got_np, want_np, gaps)
+            near, _, compared = compare_tokens(name, got_np, want_np, gaps)
             k_ms = cuda_ms(torch, lambda: kdec.greedy_decode(
                 model, enc_h, comp_h, enc_lens, MAX_STEPS, lm_, 0.5))
             p_ms = cuda_ms(torch, lambda: kdec.greedy_decode_plain(
@@ -212,11 +353,7 @@ def check_decode(torch, rng, model, lm):
         out[name] = {"max_abs_err": err, "ms": k_ms,
                      "plain_ms": p_ms, "near_tie_rows": near}
 
-    biased = {}
-    for bias in (50.0, -50.0):
-        biased[bias] = copy.deepcopy(model)
-        with torch.no_grad():
-            biased[bias].char_trans.bias[EOS_ID] = bias
+    biased = {bias: eos_biased(torch, model, bias) for bias in (50.0, -50.0)}
     with torch.inference_mode():
         got = kdec.greedy_decode(biased[50.0], enc_h, comp_h, enc_lens, MAX_STEPS).cpu().numpy()
         want = kdec.greedy_decode_plain(biased[50.0], enc_h, comp_h, enc_lens,
@@ -242,6 +379,179 @@ def check_decode(torch, rng, model, lm):
               f"({1e3 * p_ms / MAX_STEPS:.1f} us/step)", flush=True)
         out[name].update(ms=k_ms, plain_ms=p_ms)
     return out
+
+
+def eos_biased(torch, model, bias):
+    """A copy of ``model`` whose EOS logit carries ``bias``."""
+    from ss_asr_tpu_torch.vocab import EOS_ID
+
+    m = copy.deepcopy(model)
+    with torch.no_grad():
+        m.char_trans.bias[EOS_ID] = bias
+    return m
+
+
+def check_beam(torch, rng, model, lm):
+    """K8 against beam_scan_plain: the seeded frontier, the early exit, and
+    the times over all 200 steps."""
+    import numpy as np
+
+    from ss_asr_tpu_torch.models import las
+    from ss_asr_tpu_torch.ops.kernels import beam as kbeam
+    from ss_asr_tpu_torch.vocab import EOS_ID
+
+    enc_h, comp_h, enc_lens = listener_memory(torch, rng, model, B)
+    V = model.cfg.vocab_size
+    # the float64 witness of near-tied divergences
+    model64, lm64 = copy.deepcopy(model).double(), copy.deepcopy(lm).double()
+    with torch.inference_mode():
+        enc64 = enc_h.double()
+        comp64 = las.attention_precompute(model64.attention, enc64)
+    out = {}
+    for name, use_lm in (("beam_decode", False), ("beam_decode_lm", True)):
+        lm_, lm64_ = (lm, lm64) if use_lm else (None, None)
+        errs, near_rows, tie_rows = [], 0, 0
+        for K in BEAM_WIDTHS:
+            tag = f"{name} K={K}"
+            with torch.inference_mode():
+                got_t = kbeam.beam_device(model, enc_h, comp_h, enc_lens, K, MAX_STEPS, lm_, 0.5)
+                torch.cuda.synchronize()
+                want_t = kbeam.beam_scan_plain(model, enc_h, comp_h, enc_lens, K, MAX_STEPS,
+                                               lm_, 0.5)
+                plain_c = replay_frontier(torch, model, lm_, 0.5, enc_h, comp_h, enc_lens,
+                                          *want_t[:2])[0]
+                gaps = frontier_gaps(torch, plain_c, K, MAX_STEPS)
+                kern_c, k_scores, k_done, k_hyp = replay_frontier(
+                    torch, model, lm_, 0.5, enc_h, comp_h, enc_lens, *got_t[:2])
+            got, want = [t.cpu().numpy() for t in got_t], [t.cpu().numpy() for t in want_t]
+            c64 = []
+
+            def f32_tie(b, d):
+                """The plain and the kernel's candidates at the first slot
+                where row b's step d differs, in float64 along the plain path."""
+                if not c64:
+                    with torch.inference_mode():
+                        c64.append(replay_frontier(torch, model64, lm64_, 0.5, enc64, comp64,
+                                                   enc_lens, *want_t[:2])[0].cpu().numpy())
+                slot = int(((got[0][d, b] != want[0][d, b])
+                            | (got[1][d, b] != want[1][d, b])).nonzero()[0][0])
+                c = c64[0][b, d]
+                mine = c[want[1][d, b, slot] * V + want[0][d, b, slot]]
+                theirs = c[got[1][d, b, slot] * V + got[0][d, b, slot]]
+                res = F32_TIE_ULPS * float(np.spacing(np.float32(abs(mine))))
+                err32 = abs(float(plain_c[b, d, want[1][d, b, slot] * V + want[0][d, b, slot]])
+                            - mine)
+                return abs(mine - theirs) <= min(res, NEAR_TIE), (
+                    f"slot {slot}: float64 gap {abs(mine - theirs):.3e}, float32 resolution "
+                    f"({F32_TIE_ULPS} ulps) {res:.3e}, plain float32 error {err32:.3e}")
+
+            def steps(f):  # [B, T, 2, K]: each step's tokens and parents
+                return np.stack([f[0], f[1]], -2).transpose(1, 0, 2, 3)
+
+            near, ties, compared = compare_tokens(tag, steps(got), steps(want), gaps, f32_tie)
+            whole = compared.all(1)
+            err = float(np.abs(got[2] - want[2])[whole].max())
+            if not (err <= SCORE_TOL and (got[3] == want[3])[whole].all()
+                    and (got[4] == want[4])[whole].all()):
+                fail(f"{tag}: final scores differ by {err} (> {SCORE_TOL}) or done / lengths "
+                     "differ on rows that never diverged")
+            # every row, diverged or not: the kernel's own path replayed
+            # through the plain step picks, at each step, candidates within
+            # SCORE_TOL of the step's K best and ends at the kernel's scores
+            n = kern_c.shape[1]
+            picks = (got_t[1][:n].long() * V + got_t[0][:n].long()).permute(1, 0, 2)
+            pick_err = float((torch.gather(kern_c, 2, picks)
+                              - torch.topk(kern_c, K, dim=-1).values).abs().max())
+            path_err = float((got_t[2] - k_scores).abs().max())
+            if not (pick_err <= SCORE_TOL and path_err <= SCORE_TOL
+                    and torch.equal(got_t[3], k_done) and torch.equal(got_t[4], k_hyp)):
+                fail(f"{tag}: along its own path the kernel's picks are off the step's K best "
+                     f"by {pick_err}, its scores by {path_err} (> {SCORE_TOL}), or its done / "
+                     "lengths differ from the plain step's")
+            print(f"{tag} B={B} S={enc_h.shape[1]}: seeded run of {plain_c.shape[1]} steps, final "
+                  f"score max_abs_err {err:.3e} on {int(whole.sum())} whole rows; the kernel's "
+                  f"own path replayed: picks within {pick_err:.3e} of the K best, scores within "
+                  f"{path_err:.3e}, done and lengths equal, all {B} rows", flush=True)
+            errs.append(max(err, path_err))
+            near_rows += near
+            tie_rows += ties
+        out[name] = {"max_abs_err": max(errs), "near_tie_rows": near_rows,
+                     "float32_tie_rows": tie_rows}
+
+    # early exit: with an EOS bias of +50 every beam ends within two steps
+    ended = eos_biased(torch, model, 50.0)
+    for K in BEAM_WIDTHS:
+        for lm_ in (None, lm):
+            with torch.inference_mode():
+                got = kbeam.beam_device(ended, enc_h, comp_h, enc_lens, K, MAX_STEPS, lm_, 0.5)
+                want = kbeam.beam_scan_plain(ended, enc_h, comp_h, enc_lens, K, MAX_STEPS, lm_,
+                                             0.5)
+            got, want = [t.cpu().numpy() for t in got], [t.cpu().numpy() for t in want]
+            same = all((g == w).all() for g, w in zip(got[:2] + got[3:], want[:2] + want[3:]))
+            if not (same and got[3].all() and (got[0][2:] == 0).all()
+                    and np.abs(got[2] - want[2]).max() <= SCORE_TOL):
+                fail(f"beam early exit K={K} lm={lm_ is not None}: differs from the plain "
+                     "frontier or did not end within two steps")
+    print("beam early exit (EOS bias 50): every beam ends within two steps, then SOS and "
+          "identity parents; equal to the plain frontier", flush=True)
+
+    # per-step cost: an EOS bias of -50 keeps every beam open all MAX_STEPS
+    running = eos_biased(torch, model, -50.0)
+    for name, lm_ in (("beam_decode", None), ("beam_decode_lm", lm)):
+        for K in BEAM_WIDTHS:
+            with torch.inference_mode():
+                k_ms = cuda_ms(torch, lambda: kbeam.beam_device(
+                    running, enc_h, comp_h, enc_lens, K, MAX_STEPS, lm_, 0.5))
+                p_ms = cuda_ms(torch, lambda: kbeam.beam_scan_plain(
+                    running, enc_h, comp_h, enc_lens, K, MAX_STEPS, lm_, 0.5), reps=3)
+                toks = kbeam.beam_device(running, enc_h, comp_h, enc_lens, K, MAX_STEPS, lm_,
+                                         0.5)[0]
+            if bool((toks == EOS_ID).any()):
+                fail(f"{name} K={K}: an EOS bias of -50 still emitted EOS")
+            print(f"{name} K={K} full {MAX_STEPS} steps B={B} S={enc_h.shape[1]}: kernel "
+                  f"{k_ms:.3f} ms ({1e3 * k_ms / MAX_STEPS:.1f} us/step), plain {p_ms:.3f} ms "
+                  f"({1e3 * p_ms / MAX_STEPS:.1f} us/step)", flush=True)
+            if K == BEAM_WIDTHS[0]:  # the default config's width goes into the JSON
+                out[name].update(ms=k_ms, plain_ms=p_ms)
+    return out
+
+
+def check_spell(torch, rng, model):
+    """K9 against spell_fwd_plain at the training flagship and the alignment
+    shape, teacher-forced, sampled and greedy."""
+    from ss_asr_tpu_torch.models import las
+    from ss_asr_tpu_torch.ops.kernels import spell as kspell
+    from ss_asr_tpu_torch.vocab import VOCAB_SIZE
+
+    enc_all, comp_all, lens_all = listener_memory(torch, rng, model, SPELL_SHAPES[0][0])
+    res = {"max_abs_err": 0.0}
+    for Bs, L in SPELL_SHAPES:
+        enc_h, comp_h, enc_lens = enc_all[:Bs], comp_all[:Bs], lens_all[:Bs]
+        for tf in (1.0, 0.9, None):
+            g = torch.Generator().manual_seed(SEED)
+            if tf is None:  # greedy feedback
+                tf_draws = torch.zeros(L, device=DEVICE)
+                gumbel = torch.zeros(L, Bs, VOCAB_SIZE, device=DEVICE)
+            else:
+                tf_draws, gumbel = las.draw_scheduled_sampling(L, Bs, tf, model.cfg, g, DEVICE)
+            ids = torch.randint(0, VOCAB_SIZE, (L, Bs), generator=g).to(DEVICE)
+            args = (model, enc_h, comp_h, enc_lens, tf_draws, gumbel, model.embed.weight[ids])
+            with torch.inference_mode():
+                got = kspell.spell_fwd(*args)
+                torch.cuda.synchronize()
+                want = kspell.spell_fwd_plain(*args)
+                err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+                k_ms = cuda_ms(torch, lambda: kspell.spell_fwd(*args))
+                p_ms = cuda_ms(torch, lambda: kspell.spell_fwd_plain(*args), reps=3)
+            mode = "greedy" if tf is None else f"tf {tf} ({int(tf_draws.sum())}/{L} teacher)"
+            print(f"spell_fwd B={Bs} L={L} S={enc_h.shape[1]} {mode}: 7 streams max_abs_err "
+                  f"{err:.3e}; kernel {k_ms:.3f} ms plain {p_ms:.3f} ms", flush=True)
+            if not err <= SPELL_TOL:
+                fail(f"spell_fwd B={Bs} L={L} {mode}: max_abs_err {err} > {SPELL_TOL}")
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            if (Bs, L, tf) == (*SPELL_SHAPES[1], 1.0):  # the alignment pass of the server
+                res.update(ms=k_ms, plain_ms=p_ms)
+    return {"spell_fwd": res}
 
 
 def wav_bytes(y, sr) -> bytes:
@@ -270,56 +580,190 @@ def synthetic_signals(rng):
     return sigs
 
 
-def serve_phase(torch, asr_path, lm_path, sigs):
-    from ss_asr_tpu_torch.api import Transcriber
-    from ss_asr_tpu_torch.data.audio import read_wav
+def launch_counters():
+    """Every kernel wrapper's launch counter."""
+    from ss_asr_tpu_torch.ops.kernels import beam as kbeam
     from ss_asr_tpu_torch.ops.kernels import decode as kdec
     from ss_asr_tpu_torch.ops.kernels import lstm as klstm
+    from ss_asr_tpu_torch.ops.kernels import spell as kspell
+
+    return (klstm.LAUNCHES, kdec.LAUNCHES, kbeam.LAUNCHES, kspell.LAUNCHES)
+
+
+def zero_launches():
+    for c in launch_counters():
+        for k in c:
+            c[k] = 0
+
+
+def read_launches():
+    return {k: v for c in launch_counters() for k, v in c.items()}
+
+
+@contextlib.contextmanager
+def serving(t, reload_paths=None):
+    """The port's HTTP server over a signal-mode batcher of ``t``, in this
+    process on a free local port -> ``post(path, body) -> (status, json)``."""
     from ss_asr_tpu_torch.serve import BatchingTranscriber, serve_http
 
-    kw = {"lm_weight": 0.5} if lm_path else {}
-    t = Transcriber.from_checkpoint(asr_path, config={}, lm_path=lm_path, device="cuda",
-                                    beam_size=1, max_steps=MAX_STEPS, sr=SR, **kw)
-    bodies = [wav_bytes(s, SR) for s in sigs]
-    # the server's signals are the WAVs' int16 samples read back
-    direct = t.transcribe_signal_batch([read_wav(io.BytesIO(b))[1] for b in bodies], sr=SR)
     ready = threading.Event()
-    counters = (klstm.LAUNCHES, kdec.LAUNCHES)
     with BatchingTranscriber(t, max_batch=8, max_wait_ms=1000, mode="signal", sr=SR) as bt:
-        server = serve_http(bt, host="127.0.0.1", port=0, ready_event=ready)
+        server = serve_http(bt, host="127.0.0.1", port=0, ready_event=ready,
+                            reload_paths=reload_paths)
         th = threading.Thread(target=server.serve_forever, daemon=True)
         th.start()
-        try:
-            url = f"http://127.0.0.1:{server.server_address[1]}/transcribe"
-            # the server is local: never route its requests through an environment proxy
-            opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        # the server is local: never route its requests through an environment proxy
+        opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
 
-            def post(body):
-                with opener.open(urllib.request.Request(url, data=body), timeout=300) as r:
+        def post(path, body=b""):
+            try:
+                with opener.open(urllib.request.Request(base + path, data=body),
+                                 timeout=300) as r:
                     return r.status, json.load(r)
+            except urllib.error.HTTPError as e:
+                return e.code, json.load(e)
 
-            post(bodies[0])  # warm-up: lazy CUDA/cuBLAS set-up, not steady state
-            for c in counters:
-                for k in c:
-                    c[k] = 0
-            t0 = time.perf_counter()
-            with ThreadPoolExecutor(N_REQUESTS) as ex:
-                replies = list(ex.map(post, bodies))
-            secs = time.perf_counter() - t0
-            launches = {k: v for c in counters for k, v in c.items()}
+        try:
+            yield post
         finally:
             server.shutdown()
             server.server_close()
             th.join(timeout=30)
-    tag = "serve+lm" if lm_path else "serve"
+
+
+def serve_phase(torch, tag, t, sigs, need, reload_paths=None, routes=()):
+    """Concurrent POST /transcribe of ``sigs`` against the direct batch,
+    then each route of ``routes``: (name, fn(post), kernels it must
+    launch), fn sending the route's requests and checking each reply
+    against an expectation computed before the server started.
+
+    The launch counters are zeroed just before each path's requests (after
+    one warm-up request) and read just after its last reply, so each count
+    is that path's own; every kernel of ``need`` (the batch) and of each
+    route must have launched.  Returns {path: launches}."""
+    from ss_asr_tpu_torch.data.audio import read_wav
+
+    bodies = [wav_bytes(s, SR) for s in sigs]
+    # the server's signals are the WAVs' int16 samples read back
+    direct = t.transcribe_signal_batch([read_wav(io.BytesIO(b))[1] for b in bodies], sr=SR)
+    launches = {}
+    with serving(t, reload_paths) as post:
+        post("/transcribe", bodies[0])  # warm-up: lazy CUDA/cuBLAS set-up, not steady state
+        zero_launches()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(N_REQUESTS) as ex:
+            replies = list(ex.map(lambda b: post("/transcribe", b), bodies))
+        secs = time.perf_counter() - t0
+        launches[tag] = read_launches()
+        for name, fn, _ in routes:
+            zero_launches()
+            fn(post)
+            launches[f"{tag} {name}"] = read_launches()
     for i, (status, obj) in enumerate(replies):
         if status != 200 or "text" not in obj:
             fail(f"{tag}: request {i} answered {status} {obj}")
         if obj["text"] != direct[i]:
             fail(f"{tag}: request {i} text {obj['text']!r} != direct {direct[i]!r}")
     print(f"{tag}: {len(replies)} requests, all 200, texts equal the direct batch; "
-          f"{secs:.3f} s, {len(replies) / secs:.3f} utt/s; launches {launches}", flush=True)
-    return launches, secs
+          f"{secs:.3f} s, {len(replies) / secs:.3f} utt/s", flush=True)
+    for path, names in [(tag, need)] + [(f"{tag} {n}", k) for n, _, k in routes]:
+        print(f"{path}: launches {launches[path]}", flush=True)
+        for name in names:
+            if launches[path][name] < 1:
+                fail(f"{path}: launched {name} {launches[path][name]} times")
+    return launches
+
+
+def default_routes(torch, t, config, paths, sig, long_sig, stream_sig, new_asr_tree):
+    """The detail, long-form, stream and reload routes of a server over
+    ``t`` (beam 3 + LM), as serve_phase takes them.  Every expectation is
+    the direct call, made here, before the server starts."""
+    import numpy as np
+
+    from ss_asr_tpu_torch.api import Transcriber
+    from ss_asr_tpu_torch.data.audio import read_wav
+    from ss_asr_tpu_torch.ops.frontend import compute_fbank
+    from ss_asr_tpu_torch.streaming import StreamingTranscriber
+    from ss_asr_tpu_torch.utils.checkpoint import save_pytree
+
+    def check(what, ok, got):
+        if not ok:
+            fail(f"serve default: {what}: {got}")
+
+    body = wav_bytes(sig, SR)
+    y = read_wav(io.BytesIO(body))[1]
+    want = t.transcribe_fbank_detailed(compute_fbank(y, SR, device=DEVICE), n_best=3)[0]
+    long_body = wav_bytes(long_sig, SR)
+    y_long = read_wav(io.BytesIO(long_body))[1]
+    want_long = t.transcribe_long(y_long, SR)
+    pcm = (np.clip(stream_sig, -1, 1) * 32767).astype("<i2")
+    chunks = np.array_split(pcm, max(1, len(pcm) // (SR // 2)))
+    ref = StreamingTranscriber(t, sr=SR)
+    want_partials = []
+    for c in chunks:
+        ref.feed(c.astype(np.float32) / 32768.0)
+        want_partials.append({"partial": ref.partial(), "committed": ref.committed_text})
+    want_final = {"text": ref.finalize()}
+    save_pytree(paths["new_asr"], new_asr_tree)
+    fresh = Transcriber.from_checkpoint(paths["new_asr"], config, lm_path=paths["lm"],
+                                        device=DEVICE, max_steps=MAX_STEPS, sr=SR)
+    want_fresh = {"text": fresh.transcribe_signal(y, SR)}
+
+    def detail(post):
+        code, obj = post("/transcribe?detail=1&nbest=3", body)
+        check("?detail=1&nbest=3", code == 200 and [h["text"] for h in obj["hypotheses"]]
+              == [h.text for h in want] and all(
+                  abs(g["score"] - h.score) <= 1e-4 and len(g["char_starts"]) == len(h.text)
+                  for g, h in zip(obj["hypotheses"], want)), (code, obj))
+        print(f"serve default: ?detail=1&nbest=3 200, {len(want)} hypotheses equal the direct "
+              f"call (best {len(want[0].text)} chars, score {want[0].score:.3f})", flush=True)
+
+    def long(post):
+        t0 = time.perf_counter()
+        code, obj = post("/transcribe?long=1", long_body)
+        secs = time.perf_counter() - t0
+        check("?long=1", code == 200 and obj["text"] == want_long, (code, obj))
+        print(f"serve default: ?long=1 on {len(y_long) / SR:.1f} s, 200 in {secs:.3f} s, "
+              f"{len(want_long)} chars, equal to the direct call", flush=True)
+
+    def stream(post):
+        code, obj = post("/stream")
+        check("/stream create", code == 200 and "id" in obj, (code, obj))
+        sid = obj["id"]
+        for c, w in zip(chunks, want_partials):
+            code, obj = post(f"/stream/{sid}", c.tobytes())
+            check("/stream feed", (code, obj) == (200, w), (code, obj))
+        code, obj = post(f"/stream/{sid}/end")
+        check("/stream end", (code, obj) == (200, want_final), (code, obj))
+        print(f"serve default: /stream of {len(pcm) / SR:.1f} s in {len(chunks)} PCM16 chunks, "
+              "every partial and the final text equal the direct session", flush=True)
+
+    def reload(post):
+        shutil.copyfile(paths["new_asr"], paths["asr"])
+        code, obj = post("/reload")
+        check("/reload", code == 200, (code, obj))
+        code, obj = post("/transcribe", body)
+        check("/transcribe after /reload", (code, obj) == (200, want_fresh), (code, obj))
+        print("serve default: /reload 200; the next reply equals a transcriber loaded from the "
+              "new checkpoint", flush=True)
+
+    dec = ("lstm_fwd", "beam_decode_lm")
+    return [("?detail", detail, dec + ("spell_fwd",)), ("?long", long, dec),
+            ("/stream", stream, dec), ("/reload", reload, dec)]
+
+
+def long_signal(rng, seconds):
+    """A seeded tone-and-noise signal with quiet gaps every few seconds."""
+    import numpy as np
+
+    n = int(seconds * SR)
+    t = np.arange(n) / SR
+    y = sum(0.2 * np.sin(2 * np.pi * f * t) for f in rng.uniform(100, 3000, size=3))
+    y = y + 0.05 * rng.standard_normal(n)
+    for start in np.arange(2.5, seconds, 4.0):
+        y[int(start * SR) : int((start + 0.3) * SR)] *= 0.02
+    return y.astype(np.float32)
 
 
 def main() -> None:
@@ -348,42 +792,71 @@ def main() -> None:
     build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(lib_path, HERE)}", flush=True)
 
-    # phase 3: kernels against their plain versions
-    cfg = las.ASRConfig()
-    lm_cfg = charlm.CharLMConfig()
+    # phase 3: kernels against their plain versions, at the sizes of conf/default.yaml
+    import yaml
+
+    with open(os.path.join(HERE, "conf", "default.yaml")) as f:
+        config = yaml.safe_load(f)
+    cfg = las.ASRConfig.from_dict(config["asr"]["mdl"])
+    lm_cfg = charlm.CharLMConfig.from_dict(config["char_lm"]["mdl"])
     asr_tree = convert.init_asr_numpy(SEED, cfg)
     lm_tree = convert.init_charlm_numpy(SEED + 1, lm_cfg)
     model = las.LAS(cfg)
     model.load_state_dict(convert.asr_state_from_params(asr_tree))
-    model = model.cuda().eval()
+    model = model.to(DEVICE).eval()
     lm = charlm.CharLM(lm_cfg)
     lm.load_state_dict(convert.charlm_state_from_params(lm_tree))
-    lm = lm.cuda().eval()
+    lm = lm.to(DEVICE).eval()
     rng = np.random.default_rng(SEED)
     results = {"lstm_fwd": check_lstm(torch, rng, asr_tree)}
     results.update(check_decode(torch, rng, model, lm))
+    results.update(check_beam(torch, rng, model, lm))
+    results.update(check_spell(torch, rng, model))
 
-    # phase 4: the main path through the HTTP server
+    from ss_asr_tpu_torch.api import Transcriber
+
     sigs = synthetic_signals(rng)
+    long_sig, stream_sig = long_signal(rng, LONG_SECONDS), long_signal(rng, 8.0)
+    new_asr_tree = convert.init_asr_numpy(SEED + 2, cfg)
     with tempfile.TemporaryDirectory() as tmp:
-        asr_path = os.path.join(tmp, "asr.npz")
-        lm_path = os.path.join(tmp, "char_lm.npz")
-        save_pytree(asr_path, asr_tree)
-        save_pytree(lm_path, lm_tree)
-        launches, _ = serve_phase(torch, asr_path, None, sigs)
-        launches_lm, _ = serve_phase(torch, asr_path, lm_path, sigs)
-    for name in ("lstm_fwd", "greedy_decode"):
-        if launches[name] < 1:
-            fail(f"the server phase launched {name} {launches[name]} times")
-    if launches_lm["greedy_decode_lm"] < 1 or launches_lm["lstm_fwd"] < 1:
-        fail(f"the LM server phase launched {launches_lm}")
-    counts = {"lstm_fwd": launches["lstm_fwd"] + launches_lm["lstm_fwd"],
-              "greedy_decode": launches["greedy_decode"],
-              "greedy_decode_lm": launches_lm["greedy_decode_lm"]}
+        paths = {name: os.path.join(tmp, f"{name}.npz") for name in ("asr", "lm", "new_asr")}
+        save_pytree(paths["asr"], asr_tree)
+        save_pytree(paths["lm"], lm_tree)
+
+        sizes = {"asr": {"mdl": config["asr"]["mdl"]}, "char_lm": config["char_lm"]}
+
+        def transcriber(lm_path=None, **kw):
+            return Transcriber.from_checkpoint(paths["asr"], kw.pop("config", sizes),
+                                               lm_path=lm_path, device=DEVICE,
+                                               max_steps=MAX_STEPS, sr=SR, **kw)
+
+        # phase 4: greedy serving, without and with the LM
+        launches = serve_phase(torch, "serve", transcriber(beam_size=1), sigs,
+                               ("lstm_fwd", "greedy_decode"))
+        launches.update(serve_phase(torch, "serve+lm",
+                                    transcriber(paths["lm"], beam_size=1, lm_weight=0.5), sigs,
+                                    ("lstm_fwd", "greedy_decode_lm")))
+        # phase 5: serving under the default config's decode settings
+        beam = transcriber(config=config)
+        default = transcriber(paths["lm"], config=config)
+        if (beam.beam_size, default.beam_size, default.lm_weight) != (3, 3, 0.5):
+            fail(f"conf/default.yaml gave beam {beam.beam_size} / {default.beam_size}, "
+                 f"LM weight {default.lm_weight}")
+        launches.update(serve_phase(torch, "serve beam3", beam, sigs, ("lstm_fwd", "beam_decode")))
+        routes = default_routes(torch, default, config, paths, sigs[1], long_sig, stream_sig,
+                                new_asr_tree)
+        launches.update(serve_phase(
+            torch, "serve default", default, sigs, ("lstm_fwd", "beam_decode_lm"),
+            reload_paths={"asr": paths["asr"], "lm": paths["lm"]}, routes=routes))
+    # each kernel's launches on the serving paths, every path counted on its own
+    counts = {name: sum(ls[name] for ls in launches.values()) for name in results}
 
     replaces = {"lstm_fwd": ("lstm_fwd.cu", "ss_asr_tpu/ops/pallas/lstm.py:149"),
                 "greedy_decode": ("greedy_decode.cu", "ss_asr_tpu/ops/pallas/decode.py:33"),
-                "greedy_decode_lm": ("greedy_decode.cu", "ss_asr_tpu/ops/pallas/decode.py:281")}
+                "greedy_decode_lm": ("greedy_decode.cu", "ss_asr_tpu/ops/pallas/decode.py:281"),
+                "beam_decode": ("beam_decode.cu", "ss_asr_tpu/ops/pallas/beam.py:74"),
+                "beam_decode_lm": ("beam_decode.cu", "ss_asr_tpu/ops/pallas/beam.py:74"),
+                "spell_fwd": ("spell_fwd.cu", "ss_asr_tpu/ops/pallas/spell.py:115")}
     kernels = [{"name": name, "route": "cuda", "source": f"ss_asr_tpu_torch/csrc/{src}",
                 "replaces": rep, "launches": counts[name],
                 "max_abs_err": results[name]["max_abs_err"], "ms": results[name]["ms"],

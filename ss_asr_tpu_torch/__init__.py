@@ -7,12 +7,15 @@ there) and is held against it on the same weights and inputs.  It imports
 ``ss_asr_tpu`` (whose ``__init__`` imports jax whenever ``JAX_PLATFORMS`` is
 set), so it runs on a machine that has no JAX.
 
-The slice ported so far is the greedy serving path: the batched log-mel
-frontend, the pyramidal BiLSTM listener, greedy attend-and-spell decoding
-with optional char-LM shallow fusion, the ``Transcriber`` API, the dynamic
-batcher and the HTTP server.  Its three sequential hot loops run as CUDA C++
-kernels written for ``sm_90a`` (``csrc/``): the LSTM time loop and the whole
-greedy decode, with and without the LM.
+Ported so far: the whole serving path — the log-mel frontend (batched and
+streaming), the pyramidal BiLSTM listener, greedy and beam decoding with
+optional char-LM shallow fusion, n-best hypotheses with confidence and
+timestamps from a forced-alignment pass, LM rescoring, long-form and
+streaming decodes, the ``Transcriber`` API, the dynamic batcher and the
+HTTP server with hot reload.  Its sequential hot loops run as CUDA C++
+kernels written for ``sm_90a`` (``csrc/``): the LSTM time loop, the whole
+greedy decode and the whole beam frontier (each with and without the LM),
+and the attend-and-spell forward.  Training is not ported yet.
 
 Routing is by device alone: a CUDA tensor goes to the kernel, a CPU tensor
 to the kernel's plain PyTorch version beside it.  There is no switch.

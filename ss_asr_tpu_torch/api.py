@@ -1,16 +1,16 @@
 """High-level inference API: checkpoint -> transcripts.
 
     from ss_asr_tpu_torch.api import Transcriber
-    t = Transcriber.from_checkpoint("asr.npz", config, beam_size=1)
+    t = Transcriber.from_checkpoint("asr.npz", config)
     print(t.transcribe_wav("utt.wav"))
 
-Port of ``ss_asr_tpu/api.py`` ``Transcriber``, greedy subset: the batched
-frontend, the listener and the greedy decode (± char-LM fusion) run on the
-model's device — the CUDA kernels on a GPU, their plain versions on the CPU.
-The signal/frame bucketing (``sr``, ``t_bucket``, the 500 ms sample grid)
-and the empty-row rules are the JAX package's.  Beam search, mesh serving,
-the detailed / long-form / streaming decodes raise ``NotImplementedError``
-naming their ROADMAP.md item.
+Port of ``ss_asr_tpu/api.py`` ``Transcriber``: the batched frontend, the
+listener and the decode (greedy or beam, ± char-LM fusion) run on the
+model's device — the CUDA kernels on a GPU, their plain versions on the
+CPU; plus the detailed (n-best, confidence, timestamps), long-form and
+streaming decodes.  The signal/frame bucketing (``sr``, ``t_bucket``, the
+500 ms sample grid) and the empty-row rules are the JAX package's.  Mesh
+serving raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -22,16 +22,16 @@ import torch
 
 from ss_asr_tpu_torch import convert
 from ss_asr_tpu_torch.data.audio import load_wav
+from ss_asr_tpu_torch.decode import align as align_mod
+from ss_asr_tpu_torch.decode.beam import beam_decode, beam_decode_nbest
 from ss_asr_tpu_torch.decode.greedy import greedy_decode_early_exit
 from ss_asr_tpu_torch.models import charlm as charlm_mod
 from ss_asr_tpu_torch.models import las
 from ss_asr_tpu_torch.ops.frontend import log_mel_fbank_batch
+from ss_asr_tpu_torch.ops.kernels.beam import MAX_BEAM
 from ss_asr_tpu_torch.utils import checkpoint as ckpt
 from ss_asr_tpu_torch.vocab import Mapper
 
-BEAM_TODO = "ROADMAP.md port item 2 (beam search: the beam kernel K8 and decode/beam.py)"
-DETAIL_TODO = "ROADMAP.md port item 3 (n-best, alignment and rescoring)"
-LONG_TODO = "ROADMAP.md port item 4 (long-form and streaming decode)"
 MESH_TODO = "ROADMAP.md port item 9 (data-parallel serving and training)"
 
 
@@ -52,15 +52,15 @@ class Transcriber:
         mesh=None,
     ):
         """``model`` (and ``lm``) already on their device; decoding runs
-        there.  Only greedy decoding (``beam_size=1``) is ported."""
-        if beam_size > 1:
-            raise NotImplementedError(
-                f"beam_size={beam_size}: beam search is not ported yet, see "
-                f"{BEAM_TODO}; pass beam_size=1")
+        there.  ``beam_size`` > 1 decodes with a beam of that width (at
+        most ``MAX_BEAM``, the widest the beam kernel takes)."""
         if mesh is not None:
             raise NotImplementedError(f"mesh serving is not ported yet, see {MESH_TODO}")
-        self.model = model.eval()
-        self.lm = lm.eval() if lm is not None else None
+        if not 1 <= beam_size <= MAX_BEAM:
+            raise ValueError(f"beam_size {beam_size} outside 1..{MAX_BEAM}")
+        #: the (ASR, LM) pair in ONE tuple, so a hot reload swaps both at
+        #: once; every decode reads it once per call (no torn pair)
+        self._w = (model.eval(), lm.eval() if lm is not None else None)
         self.cfg = model.cfg
         self.lm_cfg = lm.cfg if lm is not None else None
         self.lm_weight = lm_weight
@@ -70,6 +70,14 @@ class Transcriber:
         self.t_bucket = t_bucket
         self.device = model.embed.weight.device
         self.mapper = Mapper()
+
+    @property
+    def model(self) -> las.LAS:
+        return self._w[0]
+
+    @property
+    def lm(self) -> Optional[charlm_mod.CharLM]:
+        return self._w[1]
 
     @classmethod
     def from_checkpoint(
@@ -81,18 +89,13 @@ class Transcriber:
         **kw,
     ) -> "Transcriber":
         """Load npz checkpoints in the JAX tree layout onto ``device``.
-        ``beam_size`` follows the config's ``decode_beam_size`` as in JAX,
-        so a caller of this greedy-only port passes ``beam_size=1``."""
+        ``beam_size`` and ``lm_weight`` follow the config's
+        ``decode_beam_size`` / ``decode_lm_weight`` unless given."""
         config = config or {}
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device} requested but CUDA is not available")
         cfg = las.ASRConfig.from_dict(config.get("asr", {}).get("mdl", {}))
-        kw.setdefault("beam_size", config.get("asr", {}).get("decode_beam_size", 1))
-        if kw["beam_size"] > 1:
-            raise NotImplementedError(
-                f"beam_size={kw['beam_size']} (from the config's decode_beam_size): beam "
-                f"search is not ported yet, see {BEAM_TODO}; pass beam_size=1")
         model = las.LAS(cfg)
         model.load_state_dict(convert.asr_state_from_params(ckpt.load_pytree(asr_path)))
         lm = None
@@ -102,15 +105,27 @@ class Transcriber:
             lm.load_state_dict(convert.charlm_state_from_params(ckpt.load_pytree(lm_path)))
             lm = lm.to(device)
             kw.setdefault("lm_weight", config.get("asr", {}).get("decode_lm_weight", 0.5))
+        kw.setdefault("beam_size", config.get("asr", {}).get("decode_beam_size", 1))
         return cls(model.to(device), lm=lm, **kw)
 
     # ------------------------------------------------------------------
+    def _fused_lm(self, lm):
+        """(LM, weight) the decode fuses: none when there is no LM or its
+        weight is 0."""
+        if lm is None or self.lm_weight == 0.0:
+            return None, 0.0
+        return lm, self.lm_weight
+
     def _decode(self, x: torch.Tensor, lens: torch.Tensor) -> np.ndarray:
-        use_lm = self.lm is not None and self.lm_weight != 0.0
+        model, lm = self._w  # one snapshot: no torn (ASR, LM) pair
+        lm, lmw = self._fused_lm(lm)
+        if self.beam_size > 1:
+            toks, _ = beam_decode(model, x, lens, beam_size=self.beam_size,
+                                  max_steps=self.max_steps, lm=lm, lm_weight=lmw)
+            return toks
         with torch.inference_mode():
-            toks, _ = greedy_decode_early_exit(
-                self.model, x, lens, max_steps=self.max_steps,
-                lm=self.lm if use_lm else None, lm_weight=self.lm_weight)
+            toks, _ = greedy_decode_early_exit(model, x, lens, max_steps=self.max_steps,
+                                               lm=lm, lm_weight=lmw)
         return toks.cpu().numpy()
 
     def _prepare_batch(self, fbanks):
@@ -126,13 +141,17 @@ class Transcriber:
         return (lens == 0, torch.from_numpy(x).to(self.device),
                 torch.from_numpy(lens).to(self.device))
 
+    @staticmethod
+    def _fbank_list(fbanks) -> list:
+        if isinstance(fbanks, np.ndarray) and fbanks.ndim == 2:
+            return [fbanks]
+        return list(fbanks)
+
     def transcribe_fbank(
         self, fbanks: Union[np.ndarray, Sequence[np.ndarray]]
     ) -> List[str]:
         """[T, feat] or list thereof -> transcripts."""
-        if isinstance(fbanks, np.ndarray) and fbanks.ndim == 2:
-            fbanks = [fbanks]
-        fbanks = list(fbanks)
+        fbanks = self._fbank_list(fbanks)
         if not fbanks:
             return []
         prep = self._prepare_batch(fbanks)
@@ -143,13 +162,94 @@ class Transcriber:
         # a zero-frame row has no audio to attend to: its transcript is ""
         return ["" if e else o for e, o in zip(empty, out)]
 
+    def transcribe_fbank_detailed(
+        self,
+        fbanks: Union[np.ndarray, Sequence[np.ndarray]],
+        n_best: int = 1,
+        timestamps: bool = True,
+    ) -> List[List[align_mod.Hypothesis]]:
+        """n-best hypotheses with scores, confidence and per-character
+        timestamps, one ``List[Hypothesis]`` per input (best first).
+
+        ``n_best`` > 1 decodes with a beam of ``max(beam_size, n_best)``
+        and returns its frontier.  With ``timestamps`` every hypothesis
+        carries ``char_starts`` (seconds) and an ``avg_logprob`` from one
+        batched teacher-forced alignment pass; without, the timing arrays
+        are empty and score / avg_logprob are the beam search's own, or
+        NaN on the greedy path (greedy computes no score)."""
+        if n_best < 1:
+            raise ValueError(f"n_best must be >= 1, got {n_best}")
+        fbanks = self._fbank_list(fbanks)
+        if not fbanks:
+            return []
+        empty_hyp = align_mod.Hypothesis(
+            text="", score=0.0, avg_logprob=0.0,
+            char_starts=np.zeros((0,), np.float32), char_frames=np.zeros((0,), np.int32))
+        prep = self._prepare_batch(fbanks)
+        if prep is None:
+            return [[empty_hyp] for _ in fbanks]
+        empty, x, lens = prep
+        model, lm = self._w  # one snapshot: no torn (ASR, LM) pair
+        lm, lmw = self._fused_lm(lm)
+
+        beam = n_best > 1 or self.beam_size > 1
+        if beam:
+            toks, tok_lens, scores = beam_decode_nbest(
+                model, x, lens, beam_size=max(self.beam_size, n_best),
+                max_steps=self.max_steps, lm=lm, lm_weight=lmw, n_best=n_best)
+        else:
+            with torch.inference_mode():
+                g_toks, g_lens = greedy_decode_early_exit(
+                    model, x, lens, max_steps=self.max_steps, lm=lm, lm_weight=lmw)
+            toks = g_toks.cpu().numpy()[:, None, :]
+            tok_lens = g_lens.cpu().numpy()[:, None].astype(np.int32)
+            scores = np.full(tok_lens.shape, np.nan, np.float32)
+        n = toks.shape[1]
+
+        # one alignment pass over all B * n hypotheses; the character
+        # length is bucketed to 16
+        L = int(tok_lens.max())
+        if timestamps and L > 0:
+            Lb = round_up(L, 16)
+            ids3 = toks[:, :, :Lb]
+            if ids3.shape[2] < Lb:
+                ids3 = np.pad(ids3, ((0, 0), (0, 0), (0, Lb - ids3.shape[2])))
+            frames, logp = align_mod.force_align_nbest(model, x, lens, ids3, lm=lm,
+                                                       lm_weight=lmw)
+        out: List[List[align_mod.Hypothesis]] = []
+        for b in range(len(fbanks)):
+            if empty[b]:
+                out.append([empty_hyp])
+                continue
+            if timestamps and L > 0:
+                hyps = align_mod.build_hypotheses(self.mapper, toks[b], tok_lens[b], frames[b],
+                                                  logp[b])
+                if beam:
+                    # keep the decoder's own (EOS-inclusive) ranking score;
+                    # avg_logprob stays the alignment pass's confidence
+                    for j, h in enumerate(hyps):
+                        h.score = float(scores[b, j])
+            else:
+                hyps = [
+                    align_mod.Hypothesis(
+                        text=self.mapper.translate(toks[b, j]),
+                        score=float(scores[b, j]),
+                        avg_logprob=float(scores[b, j]) / max(int(tok_lens[b, j]), 1),
+                        char_starts=np.zeros((0,), np.float32),
+                        char_frames=np.zeros((0,), np.int32),
+                    )
+                    for j in range(n)
+                ]
+            out.append(hyps)
+        return out
+
     def transcribe_signal_batch(
         self,
         signals: Sequence[np.ndarray],
         sr: Optional[int] = None,
         s_bucket_ms: int = 500,
     ) -> List[str]:
-        """Batch of raw waveforms -> transcripts (frontend + greedy decode).
+        """Batch of raw waveforms -> transcripts (frontend + decode).
         Signal buffers bucket to an ``s_bucket_ms`` grid."""
         sr = sr or self.sr
         signals = [np.asarray(s, dtype=np.float32).reshape(-1) for s in signals]
@@ -178,11 +278,62 @@ class Transcriber:
         sr, y = load_wav(path, target_sr=self.sr)
         return self.transcribe_signal(y, sr)
 
-    def transcribe_fbank_detailed(self, fbanks, n_best: int = 1, timestamps: bool = True):
-        raise NotImplementedError(f"transcribe_fbank_detailed is not ported yet, see {DETAIL_TODO}")
+    def transcribe_stream(self, chunks, sr: Optional[int] = None) -> str:
+        """Long-form audio from an iterable of sample chunks: the frontend
+        runs incrementally (``ops.frontend.StreamingFrontend``, frames equal
+        to the one-shot frontend's) on this transcriber's device, and the
+        assembled frames decode once."""
+        from ss_asr_tpu_torch.ops.frontend import StreamingFrontend
 
-    def transcribe_long(self, y, sr=None, window_s=20.0, overlap_s=2.0, vad=None) -> str:
-        raise NotImplementedError(f"transcribe_long is not ported yet, see {LONG_TODO}")
+        fe = StreamingFrontend(sr or self.sr, n_mels=self.cfg.feature_dim, device=self.device)
+        parts = [fe.push(c) for c in chunks]
+        parts.append(fe.close())
+        return self.transcribe_fbank(np.concatenate(parts, 0))[0]
 
-    def transcribe_stream(self, chunks, sr=None) -> str:
-        raise NotImplementedError(f"transcribe_stream is not ported yet, see {LONG_TODO}")
+    def transcribe_long(
+        self,
+        y: np.ndarray,
+        sr: Optional[int] = None,
+        window_s: float = 20.0,
+        overlap_s: float = 2.0,
+        vad: Optional[str] = None,
+    ) -> str:
+        """Long-form audio: windows decoded as ONE batch, transcripts joined
+        (``decode.longform``).
+
+        Default: fixed overlapping windows, merged over the overlap.
+        ``vad="energy"``: cut at low-energy points instead; the segments are
+        disjoint (``overlap_s``, floored at ``window_s / 10``, becomes the
+        shortest segment) and their transcripts join with a space.  Audio
+        shorter than one window takes the plain path."""
+        from ss_asr_tpu_torch.decode.longform import (
+            energy_segments, merge_window_texts, window_bounds,
+        )
+        from ss_asr_tpu_torch.ops.frontend import compute_fbank
+
+        if vad not in (None, "energy"):
+            raise ValueError(f"vad must be None or 'energy', got {vad!r}")
+        sr = sr or self.sr
+        y = np.asarray(y, dtype=np.float32).reshape(-1)
+        if y.size == 0:
+            return ""
+        win = max(1, int(window_s * sr))
+        ov = max(0, min(int(overlap_s * sr), win - 1))
+        if vad == "energy":
+            # floor at win / 10: overlap_s = 0 would allow 1-sample segments
+            bounds = energy_segments(y, sr, max_window=win, min_window=max(1, ov, win // 10))
+        else:
+            bounds = window_bounds(len(y), win, ov)
+        if len(bounds) == 1:
+            return self.transcribe_signal(y, sr)
+        # the frontend once over the whole signal, frames sliced per window
+        fb = compute_fbank(y, sr, n_mels=self.cfg.feature_dim, device=self.device)
+        hop = sr // 100  # 10 ms frontend stride
+        rows = []
+        for s, e in bounds:
+            fs, fe_ = s // hop, min(max(e // hop, s // hop + 1), fb.shape[0])
+            rows.append(fb[fs:fe_])
+        texts = self.transcribe_fbank(rows)
+        if vad == "energy":
+            return " ".join(t for t in texts if t)
+        return merge_window_texts(texts, overlap_frac=ov / win)

@@ -1,15 +1,20 @@
 """HTTP transcription server with dynamic batching, on a GPU.
 
-    python -m ss_asr_tpu_torch.cli.serve asr.npz --config conf/exp.yaml \
-        --lm char_lm.npz --beam 1 --port 8000 --max-batch 16 --max-wait-ms 5
+    python -m ss_asr_tpu_torch.cli.serve asr.npz --config conf/default.yaml \
+        --lm char_lm.npz --port 8000 --max-batch 16 --max-wait-ms 5
 
     curl -s --data-binary @utt.wav http://127.0.0.1:8000/transcribe
+    curl -s --data-binary @utt.wav 'http://127.0.0.1:8000/transcribe?detail=1&nbest=3'
+    curl -s --data-binary @long.wav 'http://127.0.0.1:8000/transcribe?long=1'
+    curl -s -X POST http://127.0.0.1:8000/reload
     curl -s http://127.0.0.1:8000/stats
 
 Port of ``ss_asr_tpu/cli/serve.py``: the same arguments, less
 ``--pallas-kernel`` (the device decides the route) and plus ``--device``
-(default ``cuda``; a missing GPU is an error).  Only greedy decoding is
-ported, so a config whose ``decode_beam_size`` is above 1 needs ``--beam 1``.
+(default ``cuda``; a missing GPU is an error).  The beam width and LM
+weight follow the config (``conf/default.yaml``: beam 3, LM weight 0.5)
+unless ``--beam`` / ``--lm-weight`` say otherwise; ``POST /reload``
+re-reads the checkpoint paths given here.
 """
 
 from __future__ import annotations
@@ -25,8 +30,7 @@ def main(argv=None):
                              "omit for the flagship defaults")
     parser.add_argument("--lm", default=None, help="char-LM checkpoint for shallow fusion")
     parser.add_argument("--beam", type=int, default=None,
-                        help="beam size (default: config decode_beam_size, else greedy); "
-                             "only 1 is ported")
+                        help="beam size (default: config decode_beam_size, else greedy)")
     parser.add_argument("--lm-weight", type=float, default=None)
     parser.add_argument("--max-steps", type=int, default=200)
     parser.add_argument("--sr", type=int, default=22050,
@@ -71,7 +75,8 @@ def main(argv=None):
         print(f"serving on http://{args.host}:{args.port} (max_batch={args.max_batch}, "
               f"window={args.max_wait_ms}ms, mode={args.mode}, device={args.device})",
               flush=True)
-        serve_http(bt, host=args.host, port=args.port, sr=args.sr)
+        serve_http(bt, host=args.host, port=args.port, sr=args.sr,
+                   reload_paths={"asr": args.checkpoint, "lm": args.lm})
 
 
 if __name__ == "__main__":

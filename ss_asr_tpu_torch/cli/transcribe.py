@@ -1,20 +1,25 @@
 """Batch transcription CLI over the Transcriber API, on a GPU.
 
-    python -m ss_asr_tpu_torch.cli.transcribe CKPT utt1.wav utt2.wav ... --beam 1
-    python -m ss_asr_tpu_torch.cli.transcribe CKPT --config conf/exp.yaml \
-        --lm char_lm.npz --beam 1 --lm-weight 0.1 --out hyps.tsv fbank1.npy utt2.wav
+    python -m ss_asr_tpu_torch.cli.transcribe CKPT utt1.wav utt2.wav ...
+    python -m ss_asr_tpu_torch.cli.transcribe CKPT --config conf/default.yaml \
+        --lm char_lm.npz --beam 8 --lm-weight 0.1 --out hyps.tsv fbank1.npy utt2.wav
+    python -m ss_asr_tpu_torch.cli.transcribe CKPT --long --vad energy meeting.wav
+    python -m ss_asr_tpu_torch.cli.transcribe CKPT --nbest 3 utt.wav
 
 Port of ``ss_asr_tpu/cli/transcribe.py``: inputs are ``.wav`` files (any
 rate; resampled to ``--sr``) or ``[T, n_mels]`` ``.npy`` fbanks, decoded in
-batches of ``--batch`` with greedy decoding; the output is
-``path<TAB>transcript`` per line.  ``--device`` (default ``cuda``) picks
-the device; a missing GPU is an error.  ``--long``, ``--detail`` and
-``--nbest`` > 1 are not ported yet and exit naming their ROADMAP.md item.
+batches of ``--batch`` (greedy, or beam per ``--beam`` / the config); the
+output is ``path<TAB>transcript`` per line.  ``--long`` decodes each wav in
+windows (``--window-s``, ``--overlap-s``, ``--vad energy``); ``--detail``
+and ``--nbest`` > 1 print one JSON line per input with the n-best
+hypotheses, their scores, confidence and character / word times.
+``--device`` (default ``cuda``) picks the device; a missing GPU is an error.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 import numpy as np
@@ -29,8 +34,7 @@ def main(argv=None):
                              "omit for the flagship defaults")
     parser.add_argument("--lm", default=None, help="char-LM checkpoint for shallow fusion")
     parser.add_argument("--beam", type=int, default=None,
-                        help="beam size (default: config decode_beam_size, else greedy); "
-                             "only 1 is ported")
+                        help="beam size (default: config decode_beam_size, else greedy)")
     parser.add_argument("--lm-weight", type=float, default=None,
                         help="fusion weight (default: config decode_lm_weight)")
     parser.add_argument("--max-steps", type=int, default=200)
@@ -40,24 +44,22 @@ def main(argv=None):
     parser.add_argument("--out", default=None,
                         help="write path<TAB>transcript lines here (default stdout)")
     parser.add_argument("--long", action="store_true", dest="long_form",
-                        help="long-form mode (not ported yet)")
-    parser.add_argument("--window-s", type=float, default=20.0)
-    parser.add_argument("--overlap-s", type=float, default=2.0)
-    parser.add_argument("--vad", choices=["energy"], default=None)
+                        help="long-form mode for wav inputs: overlapping windows decoded as "
+                             "one batch, transcripts merged over the overlap")
+    parser.add_argument("--window-s", type=float, default=20.0,
+                        help="--long window length in seconds")
+    parser.add_argument("--overlap-s", type=float, default=2.0,
+                        help="--long window overlap in seconds")
+    parser.add_argument("--vad", choices=["energy"], default=None,
+                        help="--long segmentation: cut at low-energy points (pauses)")
     parser.add_argument("--detail", action="store_true",
-                        help="n-best JSON lines with timestamps (not ported yet)")
+                        help="one JSON line per input instead of TSV: n-best hypotheses with "
+                             "score, avg_logprob confidence and per-char start times (s)")
     parser.add_argument("--nbest", type=int, default=1,
-                        help="hypotheses per input; > 1 is not ported yet")
+                        help="hypotheses per input; > 1 implies beam decode and JSON lines")
     parser.add_argument("--device", default="cuda",
                         help="torch device to decode on (default cuda)")
     args = parser.parse_args(argv)
-
-    from ss_asr_tpu_torch.api import DETAIL_TODO, LONG_TODO
-
-    if args.long_form:
-        raise SystemExit(f"--long is not ported yet: {LONG_TODO}")
-    if args.detail or args.nbest > 1:
-        raise SystemExit(f"--detail / --nbest are not ported yet: {DETAIL_TODO}")
 
     import torch
 
@@ -74,6 +76,7 @@ def main(argv=None):
     from ss_asr_tpu_torch.api import Transcriber
     from ss_asr_tpu_torch.data.audio import load_wav
     from ss_asr_tpu_torch.ops.frontend import log_mel_fbank_ragged
+    from ss_asr_tpu_torch.serve import hypothesis_json
 
     kw = {"max_steps": args.max_steps, "sr": args.sr}
     if args.beam is not None:
@@ -112,8 +115,30 @@ def main(argv=None):
 
     sink = open(args.out, "w") if args.out else sys.stdout
     try:
+        if args.long_form:
+            if args.detail or args.nbest > 1:
+                raise SystemExit("--long and --detail/--nbest are exclusive "
+                                 "(windowed merge has no single alignment)")
+            for path in args.inputs:
+                if path.endswith(".npy"):
+                    raise SystemExit(f"{path}: --long takes wav inputs "
+                                     "(windows are cut in signal time)")
+                _, y = load_wav(path, target_sr=args.sr)
+                hyp = t.transcribe_long(np.asarray(y, np.float32), args.sr,
+                                        window_s=args.window_s, overlap_s=args.overlap_s,
+                                        vad=args.vad)
+                print(f"{path}\t{hyp}", file=sink, flush=True)
+            return
         for i in range(0, len(args.inputs), args.batch):
             chunk = args.inputs[i : i + args.batch]
+            if args.detail or args.nbest > 1:
+                rows = t.transcribe_fbank_detailed(chunk_fbanks(chunk), n_best=args.nbest)
+                for path, hyps in zip(chunk, rows):
+                    print(json.dumps({"path": path, "text": hyps[0].text,
+                                      "hypotheses": [hypothesis_json(h, digits=4)
+                                                     for h in hyps]},
+                                     ensure_ascii=False), file=sink, flush=True)
+                continue
             for path, hyp in zip(chunk, t.transcribe_fbank(chunk_fbanks(chunk))):
                 print(f"{path}\t{hyp}", file=sink, flush=True)
     finally:

@@ -1,6 +1,7 @@
 """Character-level language model (2x GRU) for shallow fusion.
 
-Port of ``ss_asr_tpu/models/charlm.py`` (decode-time stepping).
+Port of ``ss_asr_tpu/models/charlm.py`` (decode-time stepping and the
+teacher-forced unroll that alignment and rescoring read).
 ``CharLM.state_dict()`` has the reference CharLM's keys (and those of
 ``export_charlm``): ``emb.weight``, ``layer_{1,2}.*`` (GRU cells), ``out.*``.
 """
@@ -8,13 +9,13 @@ Port of ``ss_asr_tpu/models/charlm.py`` (decode-time stepping).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from ss_asr_tpu_torch.ops import rnn
-from ss_asr_tpu_torch.vocab import VOCAB_SIZE
+from ss_asr_tpu_torch.vocab import SOS_ID, VOCAB_SIZE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,3 +53,30 @@ def step(
     h1 = rnn.gru_step(p.layer_1, rnn.embed(p.emb, ids), h1)
     h2 = rnn.gru_step(p.layer_2, h1, h2)
     return rnn.linear(p.out, h2), (h1, h2)
+
+
+def teacher_forced_unroll(
+    p: CharLM, labels: torch.Tensor, tf_draws: Optional[torch.Tensor] = None,
+    gumbel: Optional[torch.Tensor] = None, first_input: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Unroll with scheduled sampling: labels [B, L] -> logits [B, L, V].
+
+    The input at step 0 is ``first_input`` (SOS by default); after step t
+    the unroll feeds ``labels[:, t]`` where ``tf_draws[t]`` is 1 and the
+    argmax of ``logits + gumbel[t]`` where it is 0.  Without ``tf_draws``
+    every step feeds the label; without ``gumbel`` the noise is zero."""
+    B, L = labels.shape
+    dev = labels.device
+    ids = first_input if first_input is not None else torch.full((B,), SOS_ID, dtype=torch.long,
+                                                                 device=dev)
+    state = init_state(B, p.cfg, dev)
+    out = []
+    for t in range(L):
+        logits, state = step(p, ids.long(), state)
+        out.append(logits)
+        if tf_draws is None or bool(tf_draws[t] > 0.5):
+            ids = labels[:, t]
+        else:
+            noise = gumbel[t] if gumbel is not None else 0.0
+            ids = torch.argmax(logits + noise, dim=-1)
+    return torch.stack(out, dim=1)

@@ -12,14 +12,16 @@ has exactly the keys of the reference ASR (and of ``export_asr`` in
 * Attention: softmax(tanh(phi(h1)) . tanh(psi(h))), -inf past each
   (clamped >= 1) encoder length.
 * Speller: 2 stacked LSTM cells; attention reads the first cell's h.
-
-Teacher forcing and scheduled sampling are training and are not ported yet.
+* ``attend_and_spell``: the speller loop over L steps with teacher forcing
+  / scheduled sampling or greedy feedback (the forced-alignment pass and,
+  later, the train step).  Its random numbers are explicit inputs.  The
+  text autoencoder's ``tf_cutoff_last`` waits for ROADMAP item 7.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -141,3 +143,54 @@ def speller_step(p: Speller, x: torch.Tensor, state) -> tuple:
     h1, c1 = rnn.lstm_step(p.layer_1, x, s1)
     h2, c2 = rnn.lstm_step(p.layer_2, h1, s2)
     return ((h1, c1), (h2, c2)), h2
+
+
+def draw_scheduled_sampling(
+    decode_step: int, batch: int, tf_rate: float, cfg: ASRConfig,
+    generator: Optional[torch.Generator] = None, device="cpu",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The random numbers of one scheduled-sampling unroll, as the JAX
+    package draws them outside its kernel (ops/pallas/spell.py:750-753):
+    ``tf_draws [L]`` float 0/1, one Bernoulli(tf_rate) draw per step shared
+    by the batch, and Gumbel noise ``gumbel [L, B, V]`` for the sampling
+    argmax.  ``torch.Generator`` streams differ from ``jax.random``'s."""
+    tf_draws = (torch.rand(decode_step, generator=generator) <= tf_rate).to(torch.float32)
+    u = torch.rand(decode_step, batch, cfg.vocab_size, generator=generator)
+    u = u.clamp(min=torch.finfo(torch.float32).tiny)  # JAX draws from [tiny, 1)
+    return tf_draws.to(device), (-torch.log(-torch.log(u))).to(device)
+
+
+def attend_and_spell(
+    model: LAS, enc_h: torch.Tensor, enc_lens: torch.Tensor, decode_step: int,
+    teacher: Optional[torch.Tensor] = None, tf_draws: Optional[torch.Tensor] = None,
+    gumbel: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the attention + speller loop for ``decode_step`` characters ->
+    ``(logits [B, L, V], attention [B, L, S])``.
+
+    ``teacher`` [B, >= L+1] target ids (SOS first): after step t the loop
+    feeds ``teacher[:, t+1]`` where ``tf_draws[t]`` is 1 and the Gumbel-argmax
+    of the logits (``gumbel [L, B, V]`` noise) where it is 0; without
+    ``tf_draws`` every step feeds the teacher, without ``gumbel`` the noise
+    is zero.  ``teacher=None``: greedy feedback of the logits' argmax.
+    The loop is ``ops.kernels.spell.spell_fwd``: the CUDA kernel on the
+    card, its plain version on the CPU."""
+    # imported here: ops.kernels.spell builds its plain version on this module
+    from ss_asr_tpu_torch.ops.kernels.spell import spell_fwd
+
+    B, S, _ = enc_h.shape
+    L, dev = decode_step, enc_h.device
+    cfg = model.cfg
+    if teacher is None:
+        tf_draws = torch.zeros(L, device=dev)
+        gumbel = torch.zeros(L, B, cfg.vocab_size, device=dev)
+        teacher_emb = torch.zeros(L, B, cfg.decoder_state_size, device=dev)
+    else:
+        teacher_emb = rnn.embed(model.embed, teacher[:, 1 : L + 1].to(dev).long()).transpose(0, 1)
+        tf_draws = torch.ones(L, device=dev) if tf_draws is None else tf_draws.to(dev)
+        if gumbel is None:
+            gumbel = torch.zeros(L, B, cfg.vocab_size, device=dev)
+    comp_h = attention_precompute(model.attention, enc_h)
+    logits, a, *_ = spell_fwd(model, enc_h, comp_h, enc_lens, tf_draws, gumbel.to(dev),
+                              teacher_emb.contiguous())
+    return logits.transpose(0, 1), a.transpose(0, 1)

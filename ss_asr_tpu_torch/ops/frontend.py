@@ -1,8 +1,9 @@
 """Log-mel filterbank frontend on tensors.
 
 Port of ``ss_asr_tpu/ops/frontend.py`` (``log_mel_fbank_batch``, its core
-``_log_mel_fbank_batch``, ``log_mel_fbank_ragged`` and ``compute_fbank``);
-the numpy constants (``mel_filterbank``, ``_windowed_dft_basis``,
+``_log_mel_fbank_batch``, ``log_mel_fbank_ragged``, ``compute_fbank``, the
+one-shot ``log_mel_fbank`` and the chunked ``StreamingFrontend``); the
+numpy constants (``mel_filterbank``, ``_windowed_dft_basis``,
 ``frame_params``, ``num_frames``, ``LOG_EPS``) are copied from it.
 
 40-band Slaney mel spectrogram with a 25 ms periodic Hann window and 10 ms
@@ -114,6 +115,18 @@ def _reflect(idx: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return torch.minimum(torch.where(m < n, m, period - m), n - 1).clamp(min=0)
 
 
+def _log_mel(frames: torch.Tensor, sr: int, n_mels: int, win_ms: int,
+             stride_ms: int) -> torch.Tensor:
+    """Frames [..., n_fft] -> log-mel [..., n_mels]: windowed DFT, power,
+    mel projection, log."""
+    n_fft, _ = frame_params(sr, win_ms, stride_ms)
+    wbasis, mel = _projections(sr, n_mels, win_ms, stride_ms, frames.device)
+    spec = torch.matmul(frames, wbasis)
+    n_bins = 1 + n_fft // 2
+    power = spec[..., :n_bins] ** 2 + spec[..., n_bins:] ** 2
+    return torch.log(torch.matmul(power, mel) + LOG_EPS)
+
+
 def log_mel_fbank_batch(
     y: torch.Tensor,
     n_samples: Optional[torch.Tensor],
@@ -150,12 +163,7 @@ def log_mel_fbank_batch(
         idx = torch.where((c >= 0) & (c < ns), c, _reflect(c, ns))
     yp = torch.gather(y, 1, idx)
     nf = int(num_frames(N, n_fft, hop))
-    frames = yp.unfold(1, n_fft, hop)[:, :nf]  # [B, nf, n_fft]
-    wbasis, mel = _projections(sr, n_mels, win_ms, stride_ms, dev)
-    spec = torch.matmul(frames, wbasis)
-    n_bins = 1 + n_fft // 2
-    power = spec[..., :n_bins] ** 2 + spec[..., n_bins:] ** 2
-    fb = torch.log(torch.matmul(power, mel) + LOG_EPS)
+    fb = _log_mel(yp.unfold(1, n_fft, hop)[:, :nf], sr, n_mels, win_ms, stride_ms)
     if n_samples is None:
         return fb, torch.full((B,), nf, dtype=torch.int32, device=dev)
     frame_lens = num_frames(n_samples.to(device=dev, dtype=torch.int64), n_fft, hop).to(torch.int32)
@@ -163,11 +171,98 @@ def log_mel_fbank_batch(
     return torch.where(mask[:, :, None], fb, torch.zeros((), device=dev)), frame_lens
 
 
+def log_mel_fbank(
+    y: torch.Tensor, sr: int, n_mels: int = N_DIMS, win_ms: int = WIN_MS,
+    stride_ms: int = STRIDE_MS,
+) -> torch.Tensor:
+    """One signal ``[n_samples]`` -> ``[num_frames, n_mels]`` log-mel
+    filterbank, on the signal's device."""
+    fb, _ = log_mel_fbank_batch(y.reshape(1, -1), None, sr, n_mels, win_ms, stride_ms)
+    return fb[0]
+
+
 def compute_fbank(y: np.ndarray, sr: int, n_mels: int = N_DIMS, device="cpu") -> np.ndarray:
     """One signal -> ``[T, n_mels]`` float32 numpy array."""
-    buf = torch.as_tensor(np.asarray(y, np.float32).reshape(1, -1), device=device)
-    fb, _ = log_mel_fbank_batch(buf, None, sr, n_mels)
-    return fb[0].cpu().numpy()
+    buf = torch.as_tensor(np.asarray(y, np.float32), device=device)
+    return log_mel_fbank(buf, sr, n_mels).cpu().numpy()
+
+
+class StreamingFrontend:
+    """Chunked frontend: push samples, get frames as they complete.
+
+    The frames equal ``log_mel_fbank`` of the concatenated signal:
+    ``center=True``'s start reflect-padding is built once enough samples
+    have arrived, the end padding at ``close()``, and ``n_fft - hop``
+    samples of context carry across chunks.  Samples are framed in
+    ``block``-sized windows, as in JAX; the matmuls run on ``device``.
+
+        fe = StreamingFrontend(sr=16000, device="cuda")
+        for chunk in audio_chunks:
+            frames.append(fe.push(chunk))
+        frames.append(fe.close())
+    """
+
+    def __init__(self, sr: int, n_mels: int = N_DIMS, win_ms: int = WIN_MS,
+                 stride_ms: int = STRIDE_MS, block: int = 16000, device="cpu"):
+        self.sr, self.n_mels = sr, n_mels
+        self.win_ms, self.stride_ms = win_ms, stride_ms
+        self.device = torch.device(device)
+        self.n_fft, self.hop = frame_params(sr, win_ms, stride_ms)
+        self.pad = self.n_fft // 2
+        self.block = max(block, 2 * self.n_fft)
+        self._pre = np.zeros((0,), np.float32)  # samples before the left pad is built
+        self._buf: Optional[np.ndarray] = None  # suffix of the padded stream
+        self._tail = np.zeros((0,), np.float32)  # the last pad + 1 raw samples
+
+    def _emit(self, final: bool) -> np.ndarray:
+        """Consume the buffer's full frames in fixed-size blocks."""
+        out = []
+        n_fft, hop, block = self.n_fft, self.hop, self.block
+        nf_block = (block - n_fft) // hop + 1
+        while self._buf is not None and len(self._buf) >= (block if not final else n_fft):
+            take = min(block, len(self._buf))
+            nf = min((take - n_fft) // hop + 1, nf_block)
+            chunk = np.zeros((block,), np.float32)
+            chunk[:take] = self._buf[:take]
+            frames = torch.as_tensor(chunk, device=self.device).unfold(0, n_fft, hop)[:nf]
+            with torch.inference_mode():
+                fb = _log_mel(frames, self.sr, self.n_mels, self.win_ms, self.stride_ms)
+            out.append(fb.cpu().numpy())
+            self._buf = self._buf[nf * hop:]
+        return np.concatenate(out, 0) if out else np.zeros((0, self.n_mels), np.float32)
+
+    def push(self, samples: np.ndarray) -> np.ndarray:
+        """Feed samples; returns the frames this chunk completed."""
+        samples = np.asarray(samples, np.float32).reshape(-1)
+        if self._buf is None:
+            self._pre = np.concatenate([self._pre, samples])
+            if len(self._pre) < self.pad + 1:
+                return np.zeros((0, self.n_mels), np.float32)
+            # left reflect pad: y[pad], ..., y[1] prepended
+            left = self._pre[1 : self.pad + 1][::-1]
+            self._buf = np.concatenate([left, self._pre])
+            samples = self._pre
+            self._pre = np.zeros((0,), np.float32)
+        else:
+            self._buf = np.concatenate([self._buf, samples])
+        k = self.pad + 1
+        self._tail = np.concatenate([self._tail, samples])[-k:]
+        return self._emit(final=False)
+
+    def close(self) -> np.ndarray:
+        """Right-reflect-pad and emit the remaining frames."""
+        if self._buf is None:
+            if len(self._pre) == 0:
+                return np.zeros((0, self.n_mels), np.float32)
+            # a short stream: the one-shot frontend
+            with torch.inference_mode():
+                fb = log_mel_fbank(torch.as_tensor(self._pre, device=self.device), self.sr,
+                                   self.n_mels, self.win_ms, self.stride_ms)
+            return fb.cpu().numpy()
+        # right reflect pad: y[-2], ..., y[-pad-1] appended
+        right = self._tail[:-1][::-1][: self.pad]
+        self._buf = np.concatenate([self._buf, right])
+        return self._emit(final=True)
 
 
 def log_mel_fbank_ragged(

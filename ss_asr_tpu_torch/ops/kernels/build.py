@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``ss_asr_tpu_torch/csrc``.
 
 At first use, every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, which is
-loaded with ``ctypes``.  No PyTorch headers are included, so the build takes
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+the objects are linked into ONE shared library with a plain C interface,
+which is loaded with ``ctypes``.  No PyTorch headers are included, so the build takes
 seconds, not the minutes a ``torch.utils.cpp_extension`` build takes.
 
 The library lands in ``ss_asr_tpu_torch/_build/`` (git-ignored), named by a
@@ -23,7 +24,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -31,8 +32,9 @@ BUILD_DIR = PKG_DIR / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +49,15 @@ SIGNATURES = {
     # ... the same, then lm_emb, g1 (wih, whh, bih, bhh), g2 (...), lm_w,
     # lm_b, HL, lm_weight, device, stream
     "ss_greedy_decode_lm": [_P] * 14 + [_I] * 7 + [_P] * 11 + [_I, ctypes.c_float, _I, _P],
+    # enc, comp, lens, the 10 speller weights, toks, parents, scores, done,
+    # hyp_len, att (scratch), B, S, F, M, H, V, K, max_steps, device, stream
+    "ss_beam_decode": [_P] * 19 + [_I] * 8 + [_I, _P],
+    # ... the same up to max_steps, then the 11 LM weights, HL, lm_weight,
+    # device, stream
+    "ss_beam_decode_lm": [_P] * 19 + [_I] * 8 + [_P] * 11 + [_I, ctypes.c_float, _I, _P],
+    # enc, comp, lens, tf, gumbel, teacher_emb, the 10 speller weights,
+    # logits, a, h1s, c1s, h2s, c2s, fed, B, S, F, M, H, V, L, device, stream
+    "ss_spell_fwd": [_P] * 23 + [_I] * 7 + [_I, _P],
 }
 
 
@@ -56,6 +67,15 @@ class KernelBuildError(RuntimeError):
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_count_lock = threading.Lock()
+
+
+def count_launch(launches: Dict[str, int], name: str) -> None:
+    """Add one to a wrapper's launch counter.  Wrappers launch from several
+    threads at once (a server's batcher and its request handlers), and a
+    dict item's ``+=`` is not atomic."""
+    with _count_lock:
+        launches[name] += 1
 
 
 def _torch_cuda_home() -> Optional[str]:
@@ -85,7 +105,7 @@ def sources():
 
 
 def library_path(build_dir: Path = BUILD_DIR) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -99,18 +119,24 @@ def build_library(build_dir: Path = BUILD_DIR) -> Path:
         return out
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        cu = [s for s in sources() if s.suffix == ".cu"]
+        objs = [os.path.join(tmp, s.stem + ".o") for s in cu]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)] for s, o in zip(cu, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [p.communicate()[0] for p in procs]
+        link = [nvcc, *LINK_FLAGS, "-o", os.path.join(tmp, out.name), *objs]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise KernelBuildError(
+                    f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(link)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        os.replace(os.path.join(tmp, out.name), out)
     return out
 
 

@@ -67,9 +67,10 @@ def greedy_decode_plain(
     return toks
 
 
-def _kernel_operand(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+def kernel_operand(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` as a contiguous float32 kernel operand on ``device``, or raise."""
     if t.dtype != torch.float32 or t.device != device:
-        raise ValueError(f"greedy_decode: expected float32 on {device}, got {t.dtype} on {t.device}")
+        raise ValueError(f"kernel operand: expected float32 on {device}, got {t.dtype} on {t.device}")
     return t.contiguous()
 
 
@@ -84,7 +85,7 @@ def speller_operands(model: las.LAS, device: torch.device) -> List[torch.Tensor]
         d.layer_2.weight_ih.t(), d.layer_2.weight_hh.t(), d.layer_2.bias_ih + d.layer_2.bias_hh,
         model.char_trans.weight.t(), model.char_trans.bias, model.embed.weight,
     ]
-    return [_kernel_operand(w.detach(), device) for w in ws]
+    return [kernel_operand(w.detach(), device) for w in ws]
 
 
 def lm_operands(lm: charlm_mod.CharLM, device: torch.device) -> List[torch.Tensor]:
@@ -94,7 +95,7 @@ def lm_operands(lm: charlm_mod.CharLM, device: torch.device) -> List[torch.Tenso
     for g in (lm.layer_1, lm.layer_2):
         ws += [g.weight_ih.t(), g.weight_hh.t(), g.bias_ih, g.bias_hh]
     ws += [lm.out.weight.t(), lm.out.bias]
-    return [_kernel_operand(w.detach(), device) for w in ws]
+    return [kernel_operand(w.detach(), device) for w in ws]
 
 
 def greedy_decode(
@@ -117,8 +118,8 @@ def greedy_decode(
         raise ValueError(
             f"greedy_decode: enc_h {tuple(enc_h.shape)}, comp_h {tuple(comp_h.shape)}, "
             f"enc_lens {tuple(enc_lens.shape)} do not fit {cfg}")
-    enc_h = _kernel_operand(enc_h, dev)
-    comp_h = _kernel_operand(comp_h, dev)
+    enc_h = kernel_operand(enc_h, dev)
+    comp_h = kernel_operand(comp_h, dev)
     lens = enc_lens.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty(B, max_steps, dtype=torch.int32, device=dev)
     if B == 0 or max_steps == 0:
@@ -131,12 +132,12 @@ def greedy_decode(
     if lm is None:
         err = lib.ss_greedy_decode(*args, dev.index or 0, stream)
         build.check(err, "ss_greedy_decode")
-        LAUNCHES["greedy_decode"] += 1
+        build.count_launch(LAUNCHES, "greedy_decode")
     else:
         lmw = lm_operands(lm, dev)
         err = lib.ss_greedy_decode_lm(
             *args, *[w.data_ptr() for w in lmw], lm.cfg.hidden_size, float(lm_weight),
             dev.index or 0, stream)
         build.check(err, "ss_greedy_decode_lm")
-        LAUNCHES["greedy_decode_lm"] += 1
+        build.count_launch(LAUNCHES, "greedy_decode_lm")
     return out

@@ -85,5 +85,5 @@ def lstm_fwd(
         torch.cuda.current_stream(gx.device).cuda_stream,
     )
     build.check(err, "ss_lstm_fwd")
-    LAUNCHES["lstm_fwd"] += 1
+    build.count_launch(LAUNCHES, "lstm_fwd")
     return y, cs

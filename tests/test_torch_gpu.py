@@ -12,18 +12,31 @@ lengths 0 and 1), where ``chip_smoke.py`` checks the flagship shapes.
 """
 
 import copy
+import io
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+import urllib.request
+import wave
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import frontier_gaps, replay_frontier
 from ss_asr_tpu_torch import convert
 from ss_asr_tpu_torch.api import Transcriber
 from ss_asr_tpu_torch.models import charlm, las
 from ss_asr_tpu_torch.ops import frontend
+from ss_asr_tpu_torch.ops.kernels import beam as kbeam
 from ss_asr_tpu_torch.ops.kernels import decode as kdec
 from ss_asr_tpu_torch.ops.kernels import lstm as klstm
-from ss_asr_tpu_torch.vocab import EOS_ID
+from ss_asr_tpu_torch.ops.kernels import spell as kspell
+from ss_asr_tpu_torch.vocab import EOS_ID, VOCAB_SIZE
 
 pytestmark = pytest.mark.gpu
 
@@ -119,3 +132,194 @@ def test_transcriber_on_the_card_matches_the_cpu(cuda):
         t = Transcriber(model, lm=lm, lm_weight=0.5, sr=8000, max_steps=12, t_bucket=16)
         out.append(t.transcribe_signal_batch(sigs))
     assert out[0] == out[1]
+
+
+def _memory(model, rng, cuda, B=6, T=40):
+    cfg = model.cfg
+    x = torch.from_numpy(rng.standard_normal((B, T, cfg.feature_dim)).astype(np.float32)).to(cuda)
+    x_lens = torch.tensor([T, 33, 9, 3, 17, T][:B], dtype=torch.int32, device=cuda)
+    enc_h, enc_lens = las.listener_apply(model.encoder, x, x_lens)
+    return enc_h, las.attention_precompute(model.attention, enc_h), enc_lens
+
+
+def _assert_frontier_matches(got, want, gaps):
+    """Tokens/parents equal up to a first divergence at a plain near-tie
+    (the K + 1 best candidates within 1e-4: float32 sums in another order
+    may order them otherwise; at K = 16 such gaps, exact ties included, come
+    every few steps); at least half the rows never diverge, and on those
+    done, lengths and scores agree (scores within 1e-4)."""
+    toks, parents, scores, done, hyp = (t.cpu().numpy() for t in got)
+    w_toks, w_parents, w_scores, w_done, w_hyp = (t.cpu().numpy() for t in want)
+    whole = []
+    for b in range(toks.shape[1]):
+        diff = ((toks[:, b] != w_toks[:, b]) | (parents[:, b] != w_parents[:, b])).any(1)
+        if not diff.any():
+            whole.append(b)
+            continue
+        t = int(diff.nonzero()[0][0])
+        assert gaps[b, t] < 1e-4, f"row {b} diverges at step {t}, plain gap {gaps[b, t]}"
+    assert 2 * len(whole) >= toks.shape[1]
+    np.testing.assert_array_equal(done[whole], w_done[whole])
+    np.testing.assert_array_equal(hyp[whole], w_hyp[whole])
+    np.testing.assert_allclose(scores[whole], w_scores[whole], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("sizes,lm_hidden", [
+    (dict(encoder_state_size=8, decoder_state_size=8, mlp_out_size=8, feature_dim=5), 8),
+    (dict(encoder_state_size=24, decoder_state_size=40, mlp_out_size=300, feature_dim=7), 36),
+])
+@pytest.mark.parametrize("K", [3, 16])
+@pytest.mark.parametrize("use_lm", [False, True], ids=["beam", "beam+lm"])
+def test_beam_decode_matches_plain(cuda, sizes, lm_hidden, K, use_lm):
+    model, lm = _models(las.ASRConfig(**sizes), lm_hidden, 6, cuda)
+    lm_ = lm if use_lm else None
+    with torch.inference_mode():
+        enc_h, comp_h, enc_lens = _memory(model, np.random.default_rng(8), cuda)
+        key = "beam_decode_lm" if use_lm else "beam_decode"
+        before = kbeam.LAUNCHES[key]
+        got = kbeam.beam_device(model, enc_h, comp_h, enc_lens, K, 30, lm_, 0.6)
+        torch.cuda.synchronize()
+        assert kbeam.LAUNCHES[key] == before + 1
+        want = kbeam.beam_scan_plain(model, enc_h, comp_h, enc_lens, K, 30, lm_, 0.6)
+        cands = replay_frontier(torch, model, lm_, 0.6, enc_h, comp_h, enc_lens, *want[:2])[0]
+    _assert_frontier_matches(got, want, frontier_gaps(torch, cands, K, 30))
+
+
+@pytest.mark.parametrize("K,use_lm", [(3, False), (16, True)], ids=["beam3", "beam16+lm"])
+def test_beam_decode_long_memory_matches_plain(cuda, K, use_lm):
+    """At the flagship width, S = 1500 encoder steps (120 s, the longest
+    window the server takes) puts the K beams' attention weights past the
+    kernel's shared buffer, into its global scratch.  Against the plain
+    frontier; and rows no longer than 1000 steps give bit for bit what the
+    shared-memory path gives them at S = 1000 (padding steps add exact
+    zeros)."""
+    model, lm = _models(las.ASRConfig(), 128, 11, cuda)
+    lm_ = lm if use_lm else None
+    rng = np.random.default_rng(12)
+    S = 1500
+    enc_h = torch.from_numpy(
+        rng.standard_normal((4, S, model.cfg.enc_out_dim)).astype(np.float32)).to(cuda)
+    enc_lens = torch.tensor([S, 1000, 700, 1], dtype=torch.int32, device=cuda)
+    with torch.inference_mode():
+        comp_h = las.attention_precompute(model.attention, enc_h)
+        got = kbeam.beam_device(model, enc_h, comp_h, enc_lens, K, 12, lm_, 0.5)
+        want = kbeam.beam_scan_plain(model, enc_h, comp_h, enc_lens, K, 12, lm_, 0.5)
+        cands = replay_frontier(torch, model, lm_, 0.5, enc_h, comp_h, enc_lens, *want[:2])[0]
+        short = kbeam.beam_device(model, enc_h[1:, :1000].contiguous(),
+                                  comp_h[1:, :1000].contiguous(), enc_lens[1:], K, 12, lm_, 0.5)
+    _assert_frontier_matches(got, want, frontier_gaps(torch, cands, K, 12))
+    for a, b in zip(got, short):
+        assert torch.equal(a[..., 1:, :] if a.dim() == 3 else a[1:], b)
+
+
+@pytest.mark.parametrize("use_lm", [False, True], ids=["beam", "beam+lm"])
+def test_beam_decode_early_exit(cuda, use_lm):
+    cfg = las.ASRConfig(encoder_state_size=8, decoder_state_size=8, mlp_out_size=8, feature_dim=5)
+    model, lm = _models(cfg, 8, 4, cuda)
+    model = copy.deepcopy(model)
+    with torch.no_grad():
+        model.char_trans.bias[EOS_ID] = 50.0
+    lm_ = lm if use_lm else None
+    with torch.inference_mode():
+        enc_h, comp_h, enc_lens = _memory(model, np.random.default_rng(2), cuda, B=3, T=16)
+        got = kbeam.beam_device(model, enc_h, comp_h, enc_lens, 4, 9, lm_, 0.5)
+        want = kbeam.beam_scan_plain(model, enc_h, comp_h, enc_lens, 4, 9, lm_, 0.5)
+    assert bool(got[3].all()) and (got[0][-1] == 0).all()
+    for g, w in zip(got[:2], want[:2]):
+        assert torch.equal(g, w)
+    torch.testing.assert_close(got[2], want[2], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("tf", [1.0, 0.5, None], ids=["teacher", "sampled", "greedy"])
+@pytest.mark.parametrize("sizes", [
+    dict(encoder_state_size=8, decoder_state_size=8, mlp_out_size=8, feature_dim=5),
+    dict(encoder_state_size=24, decoder_state_size=40, mlp_out_size=300, feature_dim=7),
+])
+def test_spell_fwd_matches_plain(cuda, tf, sizes):
+    cfg = las.ASRConfig(**sizes)
+    model, _ = _models(cfg, 8, 9, cuda)
+    B, L = 6, 11
+    g = torch.Generator().manual_seed(3)
+    if tf is None:
+        tf_draws = torch.zeros(L, device=cuda)
+        gumbel = torch.zeros(L, B, VOCAB_SIZE, device=cuda)
+    else:
+        tf_draws, gumbel = las.draw_scheduled_sampling(L, B, tf, cfg, g, cuda)
+    ids = torch.randint(0, VOCAB_SIZE, (L, B), generator=g).to(cuda)
+    with torch.inference_mode():
+        enc_h, comp_h, enc_lens = _memory(model, np.random.default_rng(5), cuda, B=B)
+        temb = model.embed.weight[ids]
+        before = kspell.LAUNCHES["spell_fwd"]
+        got = kspell.spell_fwd(model, enc_h, comp_h, enc_lens, tf_draws, gumbel, temb)
+        torch.cuda.synchronize()
+        assert kspell.LAUNCHES["spell_fwd"] == before + 1
+        want = kspell.spell_fwd_plain(model, enc_h, comp_h, enc_lens, tf_draws, gumbel, temb)
+    for name, a, b in zip(("logits", "a", "h1s", "c1s", "h2s", "c2s", "fed"), got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0, msg=name)
+
+
+def test_spell_fwd_refuses_a_gradient(cuda):
+    cfg = las.ASRConfig(encoder_state_size=8, decoder_state_size=8, mlp_out_size=8, feature_dim=5)
+    model, _ = _models(cfg, 8, 9, cuda)
+    enc_h = torch.randn(2, 4, 16, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md port item 6"):
+        las.attend_and_spell(model, enc_h, torch.tensor([4, 2], device=cuda), 3)
+
+
+def test_beam_transcriber_on_the_card_matches_the_cpu(cuda):
+    cfg = las.ASRConfig(encoder_state_size=16, decoder_state_size=16, mlp_out_size=8)
+    rng = np.random.default_rng(1)
+    sigs = [(0.1 * rng.standard_normal(n)).astype(np.float32) for n in (3000, 0, 4500)]
+    out = []
+    for dev in ("cpu", cuda):
+        model, lm = _models(cfg, 8, 5, dev)
+        t = Transcriber(model, lm=lm, lm_weight=0.5, beam_size=3, sr=8000, max_steps=12,
+                        t_bucket=16)
+        fb = [frontend.compute_fbank(s, 8000) for s in sigs[:1]]
+        detail = t.transcribe_fbank_detailed(fb, n_best=3)[0]
+        out.append((t.transcribe_signal_batch(sigs), [h.text for h in detail],
+                    [h.char_frames.tolist() for h in detail]))
+    assert out[0] == out[1]
+
+
+def test_cli_serve_takes_the_default_config_on_the_card(cuda, tmp_path):
+    """``python -m ss_asr_tpu_torch.cli.serve`` with conf/default.yaml and an
+    LM, no --beam: the server decodes beam 3 + LM 0.5 and answers."""
+    from ss_asr_tpu_torch.utils.checkpoint import save_pytree
+
+    root = Path(__file__).resolve().parents[1]
+    asr, lm = str(tmp_path / "asr.npz"), str(tmp_path / "lm.npz")
+    save_pytree(asr, convert.init_asr_numpy(0, las.ASRConfig()))
+    save_pytree(lm, convert.init_charlm_numpy(1, charlm.CharLMConfig()))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ss_asr_tpu_torch.cli.serve", asr, "--config",
+         str(root / "conf" / "default.yaml"), "--lm", lm, "--port", str(port)],
+        cwd=root, env={**os.environ, "PYTHONPATH": str(root)}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        assert "serving on" in proc.stdout.readline()
+        buf = io.BytesIO()
+        with wave.open(buf, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(22050)
+            y = 0.1 * np.random.default_rng(0).standard_normal(33075)
+            w.writeframes((y * 32767).astype(np.int16).tobytes())
+        opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+        url = f"http://127.0.0.1:{port}/transcribe?detail=1&nbest=3"
+        reply = None
+        for _ in range(50):  # the socket opens just after the banner
+            try:
+                with opener.open(urllib.request.Request(url, data=buf.getvalue()),
+                                 timeout=120) as r:
+                    reply = json.load(r)
+                break
+            except OSError:
+                time.sleep(0.2)
+        assert reply is not None and len(reply["hypotheses"]) == 3
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)

@@ -22,13 +22,18 @@ import pytest
 import torch
 
 import ss_asr_tpu_torch
+from ss_asr_tpu_torch.ops.kernels import beam as kbeam
 from ss_asr_tpu_torch.ops.kernels import build
 from ss_asr_tpu_torch.ops.kernels import decode as kdecode
 from ss_asr_tpu_torch.ops.kernels import lstm as klstm
+from ss_asr_tpu_torch.ops.kernels import spell as kspell
 
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
+
+#: every kernel wrapper of the port
+WRAPPERS = [klstm.lstm_fwd, kdecode.greedy_decode, kbeam.beam_device, kspell.spell_fwd]
 
 
 def _modules():
@@ -83,16 +88,16 @@ def test_library_name_follows_the_sources(tmp_path):
     a = build.library_path(tmp_path)
     assert a == build.library_path(tmp_path) and a.parent == tmp_path
     assert a.name.startswith("libss_asr_kernels_") and a.suffix == ".so"
-    assert {s.name for s in build.sources()} >= {"lstm_fwd.cu", "greedy_decode.cu"}
+    assert {s.name for s in build.sources()} >= {"lstm_fwd.cu", "greedy_decode.cu",
+                                                  "beam_decode.cu", "spell_fwd.cu"}
     # every C entry point the wrappers call has its signature declared
     called = set()
-    for fn in (klstm.lstm_fwd, kdecode.greedy_decode):
+    for fn in WRAPPERS:
         called |= set(re.findall(r"lib\.(ss_\w+)\(", inspect.getsource(fn)))
     assert called == set(build.SIGNATURES)
 
 
-@pytest.mark.parametrize("fn", [klstm.lstm_fwd, kdecode.greedy_decode],
-                         ids=["lstm_fwd", "greedy_decode"])
+@pytest.mark.parametrize("fn", WRAPPERS, ids=[f.__name__ for f in WRAPPERS])
 def test_kernel_wrappers_hold_no_try(fn):
     tree = ast.parse(inspect.getsource(fn).lstrip())
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
