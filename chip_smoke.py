@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout, one card
 
@@ -37,6 +37,13 @@ Phases, in order; any failure exits non-zero:
      alignment shape (B * n = 16, L = 16), teacher-forced (tf 1.0),
      scheduled sampling (tf 0.9, draws from a seeded torch.Generator) and
      greedy feedback: all seven streams within 1e-4 of the plain loop.
+   * lstm_bwd (K3) on the listener layers' shapes at the training batch
+     (B = 32, T = 512/256/128/64, both directions, ragged lengths with 0
+     and 1) and spell_bwd (K10) at B = 32, L = 48, S = 64, tf 0.9 and 1.0
+     (with a cotangent on the attention maps): K3's dgx and dW_hh, K10's
+     five streams, each held by a float64 anchor: its relative L2 error
+     against a float64 run of the plain version at most 4x the plain
+     float32 version's own error against that run, and at most 1e-4.
    Kernel and plain times are CUDA-event medians after a warm-up; the
    decode kernels are timed over all 200 steps (an EOS bias of -50 keeps
    every row decoding), which is the time the JSON line reports.
@@ -56,7 +63,23 @@ Phases, in order; any failure exits non-zero:
    launch counters just before its requests (after one warm-up request)
    and reads them just after its last reply; every kernel the path runs
    must have launched, and the JSON line's launches sum these counts.
-6. One JSON line of kernels, the nvidia-smi line, and last the contract
+6. The train step at the flagship (B = 32, T = 512 frames from seeded
+   waveforms, L = 48, conf/default.yaml's Adadelta): an ``ASRTrainer`` on
+   the card and one on the CPU (plain versions) take one step on the same
+   batch with the same draws, held to a float64 run of the plain versions
+   on the CPU: the card's relative L2 error of the loss and of every
+   gradient tensor at most 4x the CPU float32 run's own, or below 1e-5;
+   every trained parameter, the listener's included, with a gradient.
+   Then 12 steps (frontend from the waveform + forward + backward + clip +
+   Adadelta) timed with CUDA events, the launch counters zeroed just
+   before and read just after (K2, K3, K9 and K10 must launch), and a
+   torch.profiler split of 3 steps.
+7. ``python -m ss_asr_tpu_torch.cli.train ASRTrainer`` as a subprocess on a
+   seeded corpus of 32 utterances (40 mels, 300-512 frames, texts up to 48
+   ids): 30 steps of the one batch, whose loss must fall, writing
+   ``asr.npz``, ``asr_opt.npz`` and ``tracker.json``; a second invocation
+   resumes at step 30.
+8. One JSON line of kernels, the nvidia-smi line, and last the contract
    line ``{"ok": true, "device": {...}}``.
 """
 
@@ -97,6 +120,14 @@ SCORE_TOL = 1e-3
 SPELL_TOL = 1e-4
 SPELL_SHAPES = ((32, 48), (16, 16))  # (B, L): the training flagship, the alignment pass
 LONG_SECONDS = 45.0
+TRAIN_B = 32  # the training flagship: B = 32, T = 512 frames, L = 48 decode steps
+TRAIN_L = 48
+TRAIN_MIN_FRAMES = 300  # utterances of 300-512 frames
+TRAIN_STEPS = 12  # timed train steps (the median is reported)
+CLI_STEPS = 30  # steps of cli.train on one repeated batch
+ANCHOR_RATIO = 4.0  # a backward kernel's error vs float64: at most 4x the plain float32's
+ANCHOR_MAX = 1e-4  # ... and at most this relative L2
+STEP_FLOOR = 1e-5  # the train step: card error vs float64 within 4x the CPU's, or below this
 
 
 def fail(msg: str) -> None:
@@ -766,6 +797,361 @@ def long_signal(rng, seconds):
     return y.astype(np.float32)
 
 
+def rel_l2(torch, a, ref) -> float:
+    """||a - ref|| / ||ref||, in float64."""
+    a, ref = a.double(), ref.double()
+    return float((a - ref).norm() / ref.norm().clamp(min=1e-30))
+
+
+def anchored(torch, name, kernel, plain, ref64):
+    """The float64-anchored rule: the kernel's relative L2 error against a
+    float64 run of the plain version at most ANCHOR_RATIO times the plain
+    float32 version's own, and at most ANCHOR_MAX.  Returns the kernel's."""
+    k, p = rel_l2(torch, kernel, ref64), rel_l2(torch, plain, ref64)
+    print(f"{name}: rel L2 vs float64 plain: kernel {k:.3e}, plain float32 {p:.3e}", flush=True)
+    if not (k <= ANCHOR_RATIO * p and k <= ANCHOR_MAX):
+        fail(f"{name}: kernel error {k:.3e} against float64 exceeds {ANCHOR_RATIO} x the plain "
+             f"version's {p:.3e} or {ANCHOR_MAX}")
+    return k
+
+
+def check_lstm_bwd(torch, rng, asr_tree):
+    """K3 against lstm_bwd_plain on the four listener layers' shapes (B =
+    TRAIN_B, both directions, ragged lengths including 0 and 1): dgx and
+    dW_hh by the float64-anchored rule."""
+    import numpy as np
+
+    from ss_asr_tpu_torch.ops.kernels import lstm as klstm
+
+    def plain(gx, whh, lengths, y, cs, dy, rev):
+        dgx = torch.stack([klstm.lstm_bwd_plain(gx[d], whh[d], lengths, y[d], cs[d], dy[d], rev[d])
+                           for d in range(2)])
+        dwhh = torch.stack([torch.einsum("tbh,tbg->hg", klstm.predecessors(y[d], rev[d]), dgx[d])
+                            for d in range(2)])
+        return dgx, dwhh
+
+    H = asr_tree["encoder"]["blstm4"]["fwd"]["w_hh"].shape[0]
+    err_max, ms, plain_ms = 0.0, 0.0, 0.0
+    rev = (False, True)
+    for layer, T in zip(("pblstm1", "pblstm2", "pblstm3", "blstm4"),
+                        (FRAMES, FRAMES // 2, FRAMES // 4, FRAMES // 8)):
+        p = asr_tree["encoder"][layer]
+        whh = torch.from_numpy(np.stack([p["fwd"]["w_hh"], p["bwd"]["w_hh"]])).to(DEVICE)
+        gx = torch.from_numpy(rng.standard_normal((2, T, TRAIN_B, 4 * H)).astype("float32")).to(DEVICE)
+        dy = torch.from_numpy(rng.standard_normal((2, T, TRAIN_B, H)).astype("float32")).to(DEVICE)
+        lens = rng.integers(2, T + 1, size=TRAIN_B)
+        lens[:3] = (0, 1, T)
+        lengths = torch.from_numpy(lens.astype("int32")).to(DEVICE)
+        with torch.no_grad():
+            y, cs = klstm.lstm_fwd(gx, whh, lengths, rev)
+            got = klstm.lstm_bwd(gx, whh, lengths, y, cs, dy, rev)
+            torch.cuda.synchronize()
+            want = plain(gx, whh, lengths, y, cs, dy, rev)
+            ref = plain(*(t.double() for t in (gx, whh)), lengths,
+                        *(t.double() for t in (y, cs, dy)), rev)
+            for name, g, w, r in zip(("dgx", "dW_hh"), got, want, ref):
+                anchored(torch, f"lstm_bwd {layer} T={T} B={TRAIN_B} {name}", g, w, r)
+            k_ms = cuda_ms(torch, lambda: klstm.lstm_bwd(gx, whh, lengths, y, cs, dy, rev))
+            p_ms = cuda_ms(torch, lambda: plain(gx, whh, lengths, y, cs, dy, rev), reps=3)
+        err = float((got[0] - want[0]).abs().max())
+        print(f"lstm_bwd {layer} T={T} B={TRAIN_B} H={H} 2 dirs: dgx max_abs_err {err:.3e}; "
+              f"kernel {k_ms:.3f} ms plain {p_ms:.3f} ms", flush=True)
+        err_max = max(err_max, err)
+        ms += k_ms
+        plain_ms += p_ms
+    return {"max_abs_err": err_max, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_spell_bwd(torch, rng, model):
+    """K10 against spell_bwd_plain at the training flagship (B = TRAIN_B,
+    L = TRAIN_L, S = 64), tf 0.9 and 1.0 (the latter with a cotangent on
+    the attention maps too): the five streams by the float64-anchored rule."""
+    from ss_asr_tpu_torch.models import las
+    from ss_asr_tpu_torch.ops.kernels import spell as kspell
+    from ss_asr_tpu_torch.ops.kernels.decode import speller_weights
+    from ss_asr_tpu_torch.vocab import VOCAB_SIZE
+
+    enc_h, comp_h, enc_lens = listener_memory(torch, rng, model, TRAIN_B)
+    L, (Bs, S, _) = TRAIN_L, enc_h.shape
+    W = [w.detach() for w in speller_weights(model)]
+    res = {"max_abs_err": 0.0}
+    for tf in (0.9, 1.0):
+        g = torch.Generator().manual_seed(SEED)
+        tf_draws, gumbel = las.draw_scheduled_sampling(L, Bs, tf, model.cfg, g, DEVICE)
+        ids = torch.randint(0, VOCAB_SIZE, (L, Bs), generator=g).to(DEVICE)
+        dlogits = torch.randn(L, Bs, VOCAB_SIZE, generator=g).to(DEVICE) / Bs
+        daext = (torch.randn(L, Bs, S, generator=g).to(DEVICE) / Bs if tf == 1.0
+                 else torch.zeros(L, Bs, S, device=DEVICE))
+        with torch.no_grad():
+            streams = kspell.spell_fwd(model, enc_h, comp_h, enc_lens, tf_draws, gumbel,
+                                       model.embed.weight[ids])[1:]
+            args = (enc_h, comp_h, dlogits, daext, streams, W)
+            got = kspell.spell_bwd(*args)
+            torch.cuda.synchronize()
+            want = kspell.spell_bwd_plain(*args)
+            ref = kspell.spell_bwd_plain(enc_h.double(), comp_h.double(), dlogits.double(),
+                                         daext.double(), tuple(s.double() for s in streams),
+                                         [w.double() for w in W])
+            for name, a, b, r in zip(("dg1", "dg2", "de", "dqp", "demb"), got, want, ref):
+                anchored(torch, f"spell_bwd tf {tf} {name}", a, b, r)
+            k_ms = cuda_ms(torch, lambda: kspell.spell_bwd(*args))
+            p_ms = cuda_ms(torch, lambda: kspell.spell_bwd_plain(*args), reps=3)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        print(f"spell_bwd B={Bs} L={L} S={S} tf {tf} ({int(tf_draws.sum())}/{L} teacher): 5 "
+              f"streams max_abs_err {err:.3e}; kernel {k_ms:.3f} ms plain {p_ms:.3f} ms", flush=True)
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        if tf == 0.9:  # the train step's rate
+            res.update(ms=k_ms, plain_ms=p_ms)
+    return {"spell_bwd": res}
+
+
+def train_config(config, idx, n_epochs):
+    """conf/default.yaml with the smoke's corpus, batch and cadence."""
+    c = copy.deepcopy(config)
+    c["asr"].update(train_index=idx, valid_index=idx, train_batch_size=TRAIN_B,
+                    valid_batch_size=TRAIN_B, n_epochs=n_epochs, logging_step=1,
+                    save_step=1000, valid_step=1000, wer_step=1000)
+    return c
+
+
+def train_batch(torch, rng):
+    """A seeded flagship batch: waveforms of 300-512 frames (10 ms hop at
+    SR) on the card, and targets y [B, TRAIN_L + 1] (SOS, 12 to TRAIN_L - 1
+    characters, EOS, SOS padding)."""
+    import numpy as np
+
+    from ss_asr_tpu_torch.ops.frontend import frame_params
+    from ss_asr_tpu_torch.vocab import EOS_ID, VOCAB_SIZE
+
+    hop = frame_params(SR)[1]
+    frames = rng.integers(TRAIN_MIN_FRAMES, FRAMES + 1, size=TRAIN_B)
+    frames[0] = FRAMES
+    n = (frames - 1) * hop + 1  # the window is odd: a centred frontend gives 1 + (n - 1) // hop
+    wave = np.zeros((TRAIN_B, int(n.max())), np.float32)
+    for i, k in enumerate(n):
+        t = np.arange(k) / SR
+        wave[i, :k] = sum(0.2 * np.sin(2 * np.pi * f * t) for f in rng.uniform(100, 3000, 3))
+        wave[i, :k] += 0.05 * rng.standard_normal(k)
+    y = np.zeros((TRAIN_B, TRAIN_L + 1), np.int64)
+    for i, k in enumerate(rng.integers(TRAIN_L // 4, TRAIN_L, size=TRAIN_B)):
+        y[i, 1 : k + 1] = rng.integers(3, VOCAB_SIZE, size=k)
+        y[i, k + 1] = EOS_ID
+    return (torch.from_numpy(wave).to(DEVICE), torch.from_numpy(n).to(DEVICE),
+            torch.from_numpy(y).to(DEVICE))
+
+
+def trainer(config, tmp, name, tree, device):
+    """An ASRTrainer on ``device`` whose checkpoint directory starts at ``tree``."""
+    from ss_asr_tpu_torch.train.asr_trainer import ASRTrainer
+    from ss_asr_tpu_torch.train.solver import make_paras
+    from ss_asr_tpu_torch.utils.checkpoint import save_pytree
+
+    paras = make_paras(name=name, logdir=os.path.join(tmp, "runs"),
+                       ckpdir=os.path.join(tmp, "result"), seed=SEED, verbose=False)
+    save_pytree(os.path.join(tmp, "result", name, "asr.npz"), tree)
+    t = ASRTrainer(config, paras, device=device)
+    t.set_model()
+    return t
+
+
+def profile_steps(torch, step, n):
+    """torch.profiler over ``n`` steps: device time by kernel group and the
+    device's idle share of the traced wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    groups = {"lstm_fwd (K2)": "lstm_fwd_kernel", "lstm_bwd (K3)": "lstm_bwd_kernel",
+              "spell_fwd (K9)": "spell_fwd_kernel", "spell_bwd (K10)": "spell_bwd_kernel"}
+    split, spans = {}, []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        low = e.name.lower()
+        key = next((g for g, k in groups.items() if k in low), None)
+        if key is None:
+            key = ("matmuls (einsums, projections)"
+                   if any(s in low for s in ("gemm", "gemv", "cutlass", "sm90", "splitk"))
+                   else "other (elementwise, reductions, optimizer, copies)")
+        split[key] = split.get(key, 0.0) + (e.time_range.end - e.time_range.start)
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    if not spans:
+        print("profile: torch.profiler saw no device time; the CUDA-event step time stands alone",
+              flush=True)
+        return
+    print(f"profile of {n} steps: wall {wall_us / 1e3 / n:.3f} ms/step, device busy "
+          f"{busy / 1e3 / n:.3f} ms/step, idle share {1 - busy / wall_us:.3f}", flush=True)
+    for key, us in sorted(split.items(), key=lambda kv: -kv[1]):
+        print(f"profile: {key}: {us / 1e3 / n:.3f} ms/step ({us / busy:.3f} of busy)", flush=True)
+
+
+def check_train_step(torch, rng, config, asr_tree, tmp):
+    """The flagship train step: the card's loss and gradients, and the CPU's
+    (plain versions), against a float64 run of the plain versions on one
+    batch with the same draws (the card's error at most ANCHOR_RATIO times
+    the CPU's, or below STEP_FLOOR); every trained parameter, the
+    listener's included, with a gradient.  Then TRAIN_STEPS steps (frontend from the
+    waveform + forward + backward + clip + Adadelta) timed with CUDA
+    events, the kernels' launch counters zeroed just before them and read
+    just after; then a profile.  Returns those launches."""
+    from ss_asr_tpu_torch.models import las
+    from ss_asr_tpu_torch.ops.frontend import log_mel_fbank_batch
+    from ss_asr_tpu_torch.train import losses
+
+    wave, n, y = train_batch(torch, rng)
+    with torch.no_grad():
+        x, x_lens = log_mel_fbank_batch(wave, n, SR)
+    card, cpu, ref = (trainer(config, tmp, f"step_{name}", asr_tree, dev)
+                      for name, dev in (("card", DEVICE), ("cpu", "cpu"), ("f64", "cpu")))
+    loss = card.step(x, x_lens, y)[0]
+    t0 = time.perf_counter()
+    want = cpu.step(x.cpu(), x_lens.cpu(), y.cpu())[0]
+    print(f"train step on the CPU (plain versions): {time.perf_counter() - t0:.1f} s", flush=True)
+    # the anchor: the same step's loss and gradients in float64 on the CPU
+    # (the same draws: each trainer's generator starts from the same seed)
+    L = y.shape[1] - 1
+    tf_draws, gumbel = las.draw_scheduled_sampling(L, TRAIN_B, ref.cfg.tf_rate, ref.cfg,
+                                                   ref.generator)
+    m64, y_cpu = ref.model.double(), y.cpu()
+    logits = las.asr_forward(m64, x.cpu().double(), x_lens.cpu(), L, teacher=y_cpu,
+                             tf_draws=tf_draws, gumbel=gumbel)[1]
+    loss64 = losses.masked_ce_per_utt(logits, y_cpu[:, 1:], y_cpu)
+    loss64.backward()
+    worst, missing, bad = (0.0, 0.0, ""), [], []
+    cpu_params, ref_params = dict(cpu.model.named_parameters()), dict(m64.named_parameters())
+    trained = [(n, p) for n, p in card.model.named_parameters() if p.requires_grad]
+    pairs = [("loss", loss.cpu(), want, loss64.detach())]
+    for name, p in trained:
+        if p.grad is None or float(p.grad.abs().sum()) == 0.0:
+            missing.append(name)
+            continue
+        pairs.append((name, p.grad.cpu(), cpu_params[name].grad, ref_params[name].grad))
+    for name, got, plain, r in pairs:
+        k, c = rel_l2(torch, got, r), rel_l2(torch, plain, r)
+        worst = max(worst, (k, c, name))
+        if not k <= max(ANCHOR_RATIO * c, STEP_FLOOR):
+            bad.append(f"{name} (card {k:.3e}, CPU {c:.3e})")
+    print(f"train step B={TRAIN_B} T={x.shape[1]} L={TRAIN_L}: loss card {float(loss):.6f} CPU "
+          f"{float(want):.6f} float64 {float(loss64.detach()):.6f}; the loss and the "
+          f"{len(trained)} trained gradients against float64: worst card rel L2 {worst[0]:.3e} "
+          f"(CPU float32 {worst[1]:.3e}, {worst[2]})", flush=True)
+    if missing:
+        fail(f"train step: no gradient on the card for {missing}")
+    if bad:
+        fail(f"train step: card error against float64 above {ANCHOR_RATIO} x the CPU float32's "
+             f"and {STEP_FLOOR}: {bad}")
+
+    def step():
+        with torch.no_grad():
+            fb, fl = log_mel_fbank_batch(wave, n, SR)
+        return card.step(fb, fl, y)
+
+    step()  # warm-up
+    zero_launches()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step()[0])
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    launches = read_launches()
+    ms = statistics.median(times)
+    print(f"train step B={TRAIN_B} T={x.shape[1]} L={TRAIN_L} (frontend + forward + backward + "
+          f"clip + Adadelta): median of {TRAIN_STEPS} {ms:.3f} ms, {TRAIN_B / ms * 1e3:.1f} utt/s "
+          f"(min {min(times):.3f}, max {max(times):.3f}); losses {float(losses[0]):.4f} -> "
+          f"{float(losses[-1]):.4f}; launches {launches}", flush=True)
+    for name in ("lstm_fwd", "lstm_bwd", "spell_fwd", "spell_bwd"):
+        if launches[name] < 1:
+            fail(f"train step: launched {name} {launches[name]} times")
+    if not all(bool(torch.isfinite(v)) for v in losses):
+        fail("train step: a non-finite loss")
+    profile_steps(torch, step, 3)
+    return launches
+
+
+def write_corpus(rng, tmp, n_utts):
+    """A seeded flagship-sized corpus: 40-mel fbanks of 300-512 frames,
+    texts of 12-46 characters (at most 48 ids with SOS and EOS), and its index."""
+    import numpy as np
+
+    from ss_asr_tpu_torch.vocab import ALL_CHARS, EOS_TKN, SOS_TKN
+
+    rows = []
+    for i in range(n_utts):
+        T = int(rng.integers(TRAIN_MIN_FRAMES, FRAMES + 1))
+        path = os.path.join(tmp, f"u{i}.npy")
+        np.save(path, rng.standard_normal((T, 40)).astype(np.float32))
+        text = "".join(rng.choice(list(ALL_CHARS), size=int(rng.integers(TRAIN_L // 4, TRAIN_L - 1))))
+        rows.append((SOS_TKN + text + EOS_TKN, path, len(text) + 2, T, "na", f"u{i}.wav"))
+    idx = os.path.join(tmp, "index.tsv")
+    with open(idx, "w", encoding="utf-8") as f:
+        for r in sorted(rows, key=lambda r: r[3]):
+            f.write("\t".join(str(a) for a in r) + "\n")
+    return idx
+
+
+def check_cli_train(rng, config, tmp):
+    """``python -m ss_asr_tpu_torch.cli.train ASRTrainer`` as a subprocess on
+    one repeated flagship batch: CLI_STEPS steps whose loss must fall, the
+    checkpoints and the tracker written; then a second invocation resumes
+    at the saved step."""
+    import numpy as np
+    import yaml
+
+    idx = write_corpus(rng, tmp, TRAIN_B)
+    log = os.path.join(tmp, "cli_runs", "smoke", "asr", "metrics.jsonl")
+    ck = os.path.join(tmp, "cli_result", "smoke")
+
+    def run(n_epochs):
+        path = os.path.join(tmp, f"cli_{n_epochs}_epochs.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(train_config(config, idx, n_epochs), f)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ss_asr_tpu_torch.cli.train", "ASRTrainer", "smoke", path,
+             os.path.join(tmp, "cli_runs"), os.path.join(tmp, "cli_result"), "--seed",
+             str(SEED), "--verbose", "0", "--device", DEVICE],
+            cwd=HERE, env={**os.environ, "PYTHONPATH": HERE}, capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode != 0:
+            fail(f"cli.train exited {proc.returncode}: {proc.stderr[-3000:]}")
+        with open(log) as f:
+            recs = [json.loads(line) for line in f]
+        with open(os.path.join(ck, "tracker.json")) as f:
+            step = json.load(f)["asr"]["step"]
+        return time.perf_counter() - t0, recs, step
+
+    secs, recs, step = run(CLI_STEPS)
+    losses = [r["value"] for r in recs if r["key"] == "asr_train_loss"]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(f"cli.train ASRTrainer: {len(losses)} steps of B={TRAIN_B} in {secs:.1f} s (process "
+          f"included); loss {losses[0]:.4f} -> {losses[-1]:.4f} (first 5 mean {first:.4f}, last 5 "
+          f"{last:.4f}); tracker step {step}", flush=True)
+    if not (len(losses) == CLI_STEPS and step == CLI_STEPS and last < first):
+        fail(f"cli.train: {len(losses)} losses, tracker step {step}, loss {first} -> {last}")
+    for name in ("asr.npz", "asr_opt.npz", "tracker.json"):
+        if not os.path.isfile(os.path.join(ck, name)):
+            fail(f"cli.train wrote no {name}")
+    secs, recs, step = run(2)
+    resumed = [r for r in recs if r["key"] == "asr_train_loss"][CLI_STEPS:]
+    print(f"cli.train resumed: steps {[r['step'] for r in resumed]} in {secs:.1f} s, loss "
+          f"{resumed[0]['value']:.4f}; tracker step {step}", flush=True)
+    if not ([r["step"] for r in resumed] == [CLI_STEPS, CLI_STEPS + 1]
+            and step == CLI_STEPS + 2 and resumed[0]["value"] < first):
+        fail(f"cli.train did not resume at step {CLI_STEPS}: {resumed}, tracker step {step}")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "ss_asr_tpu_torch")):
         fail(f"ss_asr_tpu_torch not found beside {os.path.basename(__file__)}: run from a checkout")
@@ -812,6 +1198,8 @@ def main() -> None:
     results.update(check_decode(torch, rng, model, lm))
     results.update(check_beam(torch, rng, model, lm))
     results.update(check_spell(torch, rng, model))
+    results["lstm_bwd"] = check_lstm_bwd(torch, rng, asr_tree)
+    results.update(check_spell_bwd(torch, rng, model))
 
     from ss_asr_tpu_torch.api import Transcriber
 
@@ -848,7 +1236,10 @@ def main() -> None:
         launches.update(serve_phase(
             torch, "serve default", default, sigs, ("lstm_fwd", "beam_decode_lm"),
             reload_paths={"asr": paths["asr"], "lm": paths["lm"]}, routes=routes))
-    # each kernel's launches on the serving paths, every path counted on its own
+        # phase 6: the train step, then the training CLI
+        launches["train"] = check_train_step(torch, rng, config, asr_tree, tmp)
+        check_cli_train(rng, config, tmp)
+    # each kernel's launches on the serving and training paths, every path counted on its own
     counts = {name: sum(ls[name] for ls in launches.values()) for name in results}
 
     replaces = {"lstm_fwd": ("lstm_fwd.cu", "ss_asr_tpu/ops/pallas/lstm.py:149"),
@@ -856,11 +1247,16 @@ def main() -> None:
                 "greedy_decode_lm": ("greedy_decode.cu", "ss_asr_tpu/ops/pallas/decode.py:281"),
                 "beam_decode": ("beam_decode.cu", "ss_asr_tpu/ops/pallas/beam.py:74"),
                 "beam_decode_lm": ("beam_decode.cu", "ss_asr_tpu/ops/pallas/beam.py:74"),
-                "spell_fwd": ("spell_fwd.cu", "ss_asr_tpu/ops/pallas/spell.py:115")}
+                "spell_fwd": ("spell_fwd.cu", "ss_asr_tpu/ops/pallas/spell.py:115"),
+                "lstm_bwd": ("lstm_bwd.cu", "ss_asr_tpu/ops/pallas/lstm.py:217"),
+                "spell_bwd": ("spell_bwd.cu", "ss_asr_tpu/ops/pallas/spell.py:208")}
+    # K3's launch of both directions also computes the fused BiLSTM backward
+    covers = {"lstm_bwd": "ss_asr_tpu/ops/pallas/bilstm.py:75"}
     kernels = [{"name": name, "route": "cuda", "source": f"ss_asr_tpu_torch/csrc/{src}",
                 "replaces": rep, "launches": counts[name],
                 "max_abs_err": results[name]["max_abs_err"], "ms": results[name]["ms"],
-                "plain_ms": results[name]["plain_ms"]}
+                "plain_ms": results[name]["plain_ms"],
+                **({"also_replaces": covers[name]} if name in covers else {})}
                for name, (src, rep) in replaces.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,0 +1,67 @@
+"""Training CLI, on a GPU.
+
+    python -m ss_asr_tpu_torch.cli.train ASRTrainer <name> <config> [logdir] [ckpdir] \
+        [--seed N] [--verbose B] [--device cuda]
+
+Port of ``ss_asr_tpu/cli/train.py``: the same positional arguments and
+options, plus ``--device`` (default ``cuda``; a missing GPU is an error).
+Checkpoints land in ``<ckpdir>/<name>/`` in the JAX package's layout, so
+either package resumes from the other's.  ``ASRTrainer`` is ported; the
+other trainer types of the JAX CLI raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import random
+
+import numpy as np
+
+TYPES = ["ASRTrainer", "ASRTester", "LMTrainer", "CHARLMTrainer",
+         "TAETrainer", "SAETrainer", "AdvTrainer", "ADVTrainer", "Seed"]
+AUX_TODO = "ROADMAP.md port item 7 (aux models and trainers)"
+
+
+def _parse_bool(s: str) -> bool:
+    """argparse type=bool is a trap: bool("False") is True."""
+    return s.lower() not in ("false", "0", "no", "")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(prog="ss_asr_tpu_torch.train")
+    parser.add_argument("type", metavar="t", type=str, nargs="?", choices=TYPES,
+                        default="ASRTrainer", help="The type of training/testing to perform")
+    parser.add_argument("name", metavar="n", type=str, nargs="?", default="experiment_1")
+    parser.add_argument("config", metavar="c", type=str, nargs="?", default="./conf/default.yaml")
+    parser.add_argument("logdir", type=str, nargs="?", default="runs/")
+    parser.add_argument("ckpdir", type=str, nargs="?", default="result/")
+    parser.add_argument("--seed", type=int, default=1)
+    parser.add_argument("--verbose", type=_parse_bool, default=True)
+    parser.add_argument("--device", default="cuda", help="torch device to train on (default cuda)")
+    paras = parser.parse_args(argv)
+
+    import torch
+
+    if paras.device.startswith("cuda") and not torch.cuda.is_available():
+        raise SystemExit(f"--device {paras.device}: CUDA is not available")
+    if paras.type != "ASRTrainer":
+        raise NotImplementedError(f"{paras.type} is not ported yet, see {AUX_TODO}")
+
+    import yaml
+
+    with open(paras.config, "r") as f:
+        config = yaml.safe_load(f)
+    random.seed(paras.seed)
+    np.random.seed(paras.seed)
+
+    from ss_asr_tpu_torch.train.asr_trainer import ASRTrainer
+
+    solver = ASRTrainer(config, paras, device=paras.device)
+    solver.load_data()
+    solver.set_model()
+    solver.exec()
+    solver.close()
+
+
+if __name__ == "__main__":
+    main()

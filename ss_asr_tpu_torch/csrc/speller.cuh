@@ -1,7 +1,8 @@
 // Device functions of the one-row attend-and-spell step, shared by the
-// greedy decode kernels (greedy_decode.cu) and the teacher-forced forward
-// (spell_fwd.cu): block-wide matrix-vector products, the LSTM and GRU cells,
-// and the log-softmax terms. Every function is called by all threads of a
+// greedy decode kernels (greedy_decode.cu), the teacher-forced forward
+// (spell_fwd.cu) and its backward (spell_bwd.cu): block-wide matrix-vector
+// products (and the transposed product), the LSTM and GRU cells, and the
+// log-softmax terms. Every function is called by all threads of a
 // kThreads-thread block and ends with a barrier where it says so. float32.
 #pragma once
 
@@ -118,6 +119,69 @@ __device__ void lstm_cell(const float* x, int nx, const float* __restrict__ Wx,
     const float c_new = ss::sigmoid(a[1]) * c[u] + ss::sigmoid(a[0]) * tanhf(a[2]);
     c[u] = c_new;
     h_new[u] = ss::sigmoid(a[3]) * tanhf(c_new);
+  }
+  __syncthreads();
+}
+
+// LSTM gate pre-activations, as lstm_cell computes them: out[0:4H] = bias +
+// [x | h] @ [Wx ; Wh] (i f g o), with no cell update; `part` as lstm_cell's.
+// Ends with a barrier.
+__device__ void lstm_gates(const float* x, int nx, const float* __restrict__ Wx,
+                           const float* h, const float* __restrict__ Wh,
+                           const float* __restrict__ bias, int H, float* part, float* out) {
+  const int G = 4 * H, n = nx + H, P = slices(H);
+  for (int idx = threadIdx.x; idx < P * H; idx += blockDim.x) {
+    const int u = idx % H;
+    const int p = idx / H;
+    const int k0 = p * n / P, k1 = (p + 1) * n / P;
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll 8
+    for (int k = k0; k < min(k1, nx); ++k) {
+      const float xv = x[k];
+      const float* w = Wx + (size_t)k * G + u;
+      a0 = fmaf(xv, w[0], a0);
+      a1 = fmaf(xv, w[H], a1);
+      a2 = fmaf(xv, w[2 * H], a2);
+      a3 = fmaf(xv, w[3 * H], a3);
+    }
+#pragma unroll 8
+    for (int k = max(k0, nx); k < k1; ++k) {
+      const float hv = h[k - nx];
+      const float* w = Wh + (size_t)(k - nx) * G + u;
+      a0 = fmaf(hv, w[0], a0);
+      a1 = fmaf(hv, w[H], a1);
+      a2 = fmaf(hv, w[2 * H], a2);
+      a3 = fmaf(hv, w[3 * H], a3);
+    }
+    float* pp = part + (size_t)p * G + u;
+    pp[0] = a0;
+    pp[H] = a1;
+    pp[2 * H] = a2;
+    pp[3 * H] = a3;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < G; i += blockDim.x) {
+    float a = bias[i];
+    for (int p = 0; p < P; ++p) a += part[(size_t)p * G + i];
+    out[i] = a;
+  }
+  __syncthreads();
+}
+
+// The product with W transposed: out[k] = (add ? add[k] : 0) + sum_j x[j] *
+// W[k * ncols + j] for k < nrows. Row k of W is read contiguously: a warp
+// per row, lanes along it, then a shuffle reduction. `out` may be `add`
+// (an in-place accumulation), never `x`. Ends with a barrier.
+__device__ void rowdot(const float* x, int ncols, const float* __restrict__ W, int nrows,
+                       const float* add, float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int k = warp; k < nrows; k += kWarps) {
+    const float* wk = W + (size_t)k * ncols;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int j = lane; j < ncols; j += 32) acc = fmaf(x[j], wk[j], acc);
+    acc = ss::warp_sum(acc);
+    if (lane == 0) out[k] = (add ? add[k] : 0.f) + acc;
   }
   __syncthreads();
 }

@@ -1,0 +1,144 @@
+"""ASR dataset: index-driven batches with bucketed static shapes.
+
+Port of ``ss_asr_tpu/data/asr_dataset.py`` (the speech half: no text-only
+TAE mode, no multi-host shards, which wait for ROADMAP items 7 and 9).
+Batches are consecutive runs of the index; text is encoded over the fixed
+vocabulary and padded with SOS (= id 0); each batch is padded to a frame
+and character length rounded up to ``t_bucket`` / ``l_bucket``; lengths
+follow the reference (x: the index's frame count, y: ``sum(y != 0) + 1``).
+A background thread prefetches the next batches.  A trailing partial batch
+is dropped (training) or padded by repeating its last row, with a
+validity mask (evaluation).  Fbanks load with ``np.load`` (the JAX
+package's native batch loader is its own build and is not ported).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from dataclasses import dataclass
+from typing import Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+
+from ss_asr_tpu_torch.data.index import load_index
+from ss_asr_tpu_torch.vocab import SOS_ID, Mapper
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass
+class Batch:
+    """One batch with static (bucketed) shapes."""
+
+    x: np.ndarray  # [B, T, feat] float32
+    x_lens: np.ndarray  # [B] int32
+    y: np.ndarray  # [B, L] int32 (SOS-padded)
+    y_lens: np.ndarray  # [B] int32 (sum(!=0) + 1 convention)
+    valid: Optional[np.ndarray] = None  # [B] bool, False for repeat-padding
+
+
+class ASRDataset:
+    def __init__(self, tsv_file: str, batch_size: int = 32, t_bucket: int = 128,
+                 l_bucket: int = 16):
+        self.rows: List[Dict] = load_index(tsv_file)
+        self.batch_size = batch_size
+        self.t_bucket = t_bucket
+        self.l_bucket = l_bucket
+        self.mapper = Mapper()
+        self.num_samples = len(self.rows)
+        self.feature_dim = (int(np.load(self.rows[0]["path_to_fbank"]).shape[1])
+                            if self.rows else 0)
+
+    def __len__(self) -> int:
+        """Number of full batches."""
+        return self.num_samples // self.batch_size
+
+    def num_batches(self, drop_last: bool = True) -> int:
+        """Batch count as iter_batches will actually yield it."""
+        if drop_last:
+            return self.num_samples // self.batch_size
+        return (self.num_samples + self.batch_size - 1) // self.batch_size
+
+    def _encode_rows(self, rows: List[Dict]) -> np.ndarray:
+        enc = [self.mapper.encode(r["normalized_text"]) for r in rows]
+        L = round_up(max(e.shape[0] for e in enc), self.l_bucket)
+        out = np.full((len(enc), L), SOS_ID, dtype=np.int32)
+        for i, e in enumerate(enc):
+            out[i, : e.shape[0]] = e
+        return out
+
+    def _load_fbanks(self, rows: List[Dict]) -> Tuple[np.ndarray, np.ndarray]:
+        lens = np.array([r["unpadded_num_frames"] for r in rows], dtype=np.int32)
+        T = round_up(int(lens.max()), self.t_bucket)
+        out = np.zeros((len(rows), T, self.feature_dim), dtype=np.float32)
+        # exact-length and globally padded (reference layout) fbanks alike
+        for i, r in enumerate(rows):
+            fb = np.load(r["path_to_fbank"])
+            n = min(int(lens[i]), fb.shape[0], T)
+            out[i, :n] = fb[:n]
+        return out, lens
+
+    def get_batch(self, start: int, pad_to_full: bool = False) -> Batch:
+        stop = min(start + self.batch_size, self.num_samples)
+        rows = self.rows[start:stop]
+        valid = None
+        if pad_to_full and len(rows) < self.batch_size:
+            valid = np.arange(self.batch_size) < len(rows)
+            rows = rows + [self.rows[stop - 1]] * (self.batch_size - len(rows))
+        y = self._encode_rows(rows)
+        y_lens = ((y != 0).sum(axis=-1) + 1).astype(np.int32)
+        x, x_lens = self._load_fbanks(rows)
+        return Batch(x, x_lens, y, y_lens, valid=valid)
+
+    def iter_batches(self, drop_last: bool = True, prefetch: int = 2) -> Iterator[Batch]:
+        """Iterate batches in index order with background-thread prefetch."""
+        starts = list(range(0, self.num_samples, self.batch_size))
+        if drop_last:
+            starts = [s for s in starts if s + self.batch_size <= self.num_samples]
+        if prefetch <= 0:
+            for s in starts:
+                yield self.get_batch(s, pad_to_full=not drop_last)
+            return
+
+        q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+        stop_token = object()
+        cancelled = threading.Event()
+
+        def producer():
+            try:
+                for s in starts:
+                    batch = self.get_batch(s, pad_to_full=not drop_last)
+                    # a consumer that abandons the generator must not leave
+                    # this thread blocked on a full queue
+                    while not cancelled.is_set():
+                        try:
+                            q.put(batch, timeout=0.1)
+                            break
+                        except queue.Full:
+                            continue
+                    if cancelled.is_set():
+                        return
+                q.put(stop_token)
+            except BaseException as e:  # propagate into the consumer
+                q.put(e)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is stop_token:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            cancelled.set()
+            while not q.empty():  # unblock a producer mid-put
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break

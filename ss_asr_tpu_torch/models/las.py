@@ -1,7 +1,7 @@
 """Listen-Attend-Spell: modules keyed like the reference state_dict, and
-the serving-path functions over them.
+the functions over them that serving and training run.
 
-Port of ``ss_asr_tpu/models/las.py`` (inference half).  ``LAS.state_dict()``
+Port of ``ss_asr_tpu/models/las.py``.  ``LAS.state_dict()``
 has exactly the keys of the reference ASR (and of ``export_asr`` in
 ``ss_asr_tpu/utils/torch_import.py``): ``encoder.blstm_{1,2,3}.layer.*``,
 ``encoder.blstm_4.*``, ``attention.{phi,psi}.*``,
@@ -13,9 +13,10 @@ has exactly the keys of the reference ASR (and of ``export_asr`` in
   (clamped >= 1) encoder length.
 * Speller: 2 stacked LSTM cells; attention reads the first cell's h.
 * ``attend_and_spell``: the speller loop over L steps with teacher forcing
-  / scheduled sampling or greedy feedback (the forced-alignment pass and,
-  later, the train step).  Its random numbers are explicit inputs.  The
+  / scheduled sampling or greedy feedback (the train step, validation and
+  the forced-alignment pass).  Its random numbers are explicit inputs.  The
   text autoencoder's ``tf_cutoff_last`` waits for ROADMAP item 7.
+* ``asr_forward``: listener + attend-and-spell, the train step's forward.
 """
 
 from __future__ import annotations
@@ -32,14 +33,14 @@ from ss_asr_tpu_torch.vocab import VOCAB_SIZE
 
 @dataclasses.dataclass(frozen=True)
 class ASRConfig:
-    """Model hyperparameters (conf/default.yaml asr.mdl section; the
-    training-only ``tf_rate`` is not read)."""
+    """Model hyperparameters (conf/default.yaml asr.mdl section)."""
 
     vocab_size: int = VOCAB_SIZE
     encoder_state_size: int = 256
     decoder_state_size: int = 256
     mlp_out_size: int = 128
     feature_dim: int = 40
+    tf_rate: float = 0.9
 
     @property
     def enc_out_dim(self) -> int:
@@ -132,8 +133,8 @@ def attention_step(
     return score, torch.einsum("bs,bsf->bf", score, h)
 
 
-def speller_init_state(batch: int, cfg: ASRConfig, device) -> tuple:
-    z = torch.zeros(batch, cfg.decoder_state_size, device=device)
+def speller_init_state(batch: int, cfg: ASRConfig, device, dtype=torch.float32) -> tuple:
+    z = torch.zeros(batch, cfg.decoder_state_size, device=device, dtype=dtype)
     return ((z, z), (z, z))  # ((h1, c1), (h2, c2))
 
 
@@ -173,10 +174,12 @@ def attend_and_spell(
     of the logits (``gumbel [L, B, V]`` noise) where it is 0; without
     ``tf_draws`` every step feeds the teacher, without ``gumbel`` the noise
     is zero.  ``teacher=None``: greedy feedback of the logits' argmax.
-    The loop is ``ops.kernels.spell.spell_fwd``: the CUDA kernel on the
-    card, its plain version on the CPU."""
+    The loop is ``ops.kernels.spell``: the CUDA kernels on the card, their
+    plain versions on the CPU; through ``SpellCore`` (forward and backward)
+    when a gradient is needed, through ``spell_fwd`` alone otherwise."""
     # imported here: ops.kernels.spell builds its plain version on this module
-    from ss_asr_tpu_torch.ops.kernels.spell import spell_fwd
+    from ss_asr_tpu_torch.ops.kernels.decode import speller_weights
+    from ss_asr_tpu_torch.ops.kernels.spell import SpellCore, spell_fwd
 
     B, S, _ = enc_h.shape
     L, dev = decode_step, enc_h.device
@@ -191,6 +194,24 @@ def attend_and_spell(
         if gumbel is None:
             gumbel = torch.zeros(L, B, cfg.vocab_size, device=dev)
     comp_h = attention_precompute(model.attention, enc_h)
-    logits, a, *_ = spell_fwd(model, enc_h, comp_h, enc_lens, tf_draws, gumbel.to(dev),
-                              teacher_emb.contiguous())
+    args = (model, enc_h, comp_h, enc_lens, tf_draws.to(torch.float32), gumbel.to(dev),
+            teacher_emb.contiguous())
+    if torch.is_grad_enabled() and (enc_h.requires_grad
+                                    or any(p.requires_grad for p in model.parameters())):
+        logits, a = SpellCore.apply(*args, *speller_weights(model))
+    else:
+        logits, a, *_ = spell_fwd(*args)
     return logits.transpose(0, 1), a.transpose(0, 1)
+
+
+def asr_forward(
+    model: LAS, x: torch.Tensor, x_lens: torch.Tensor, decode_step: int,
+    teacher: Optional[torch.Tensor] = None, tf_draws: Optional[torch.Tensor] = None,
+    gumbel: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """[B, T, feat] -> ``(enc_lens, logits [B, L, V], att [B, L, S])``: the
+    listener, then ``attend_and_spell`` with the same feedback arguments."""
+    enc_h, enc_lens = listener_apply(model.encoder, x, x_lens)
+    logits, scores = attend_and_spell(model, enc_h, enc_lens, decode_step, teacher,
+                                      tf_draws, gumbel)
+    return enc_lens, logits, scores

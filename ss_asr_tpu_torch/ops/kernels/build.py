@@ -43,6 +43,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     # gx, whh, lengths, y, cs, D, T, B, H, rev_bits, device, stream
     "ss_lstm_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint, _I, _P],
+    # gx, whh, lengths, y, cs, dy, dgx, D, T, B, H, rev_bits, device, stream
+    "ss_lstm_bwd": [_P] * 7 + [_I] * 4 + [ctypes.c_uint, _I, _P],
     # enc, comp, lens, phi, wih1, whh1, b1, wih2, whh2, b2, ct_w, ct_b, emb,
     # out, B, S, F, M, H, V, max_steps, device, stream
     "ss_greedy_decode": [_P] * 14 + [_I] * 8 + [_P],
@@ -58,6 +60,10 @@ SIGNATURES = {
     # enc, comp, lens, tf, gumbel, teacher_emb, the 10 speller weights,
     # logits, a, h1s, c1s, h2s, c2s, fed, B, S, F, M, H, V, L, device, stream
     "ss_spell_fwd": [_P] * 23 + [_I] * 7 + [_I, _P],
+    # enc, comp, dlogits, daext, a, h1s, c1s, h2s, c2s, fed, the speller
+    # weights less ct_b, dg1, dg2, de, dqp, demb, B, S, F, M, H, V, L, device,
+    # stream
+    "ss_spell_bwd": [_P] * 24 + [_I] * 7 + [_I, _P],
 }
 
 

@@ -74,18 +74,22 @@ def kernel_operand(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.contiguous()
 
 
-def speller_operands(model: las.LAS, device: torch.device) -> List[torch.Tensor]:
-    """The decode kernel's weights in ``x @ W`` layout:
-    phi [H, M], W_ih1 [H+F, 4H], W_hh1, b1, W_ih2, W_hh2, b2, ct_w [H, V],
-    ct_b, emb [V, H]."""
+def speller_weights(model: las.LAS) -> List[torch.Tensor]:
+    """The speller's weights in ``x @ W`` layout, as autograd views of the
+    module parameters: phi [H, M], W_ih1 [H+F, 4H], W_hh1, b1, W_ih2, W_hh2,
+    b2, ct_w [H, V], ct_b, emb [V, H] (the JAX package's tree order)."""
     d = model.decoder
-    ws = [
+    return [
         model.attention.phi.weight.t(),
         d.layer_1.weight_ih.t(), d.layer_1.weight_hh.t(), d.layer_1.bias_ih + d.layer_1.bias_hh,
         d.layer_2.weight_ih.t(), d.layer_2.weight_hh.t(), d.layer_2.bias_ih + d.layer_2.bias_hh,
         model.char_trans.weight.t(), model.char_trans.bias, model.embed.weight,
     ]
-    return [kernel_operand(w.detach(), device) for w in ws]
+
+
+def speller_operands(model: las.LAS, device: torch.device) -> List[torch.Tensor]:
+    """``speller_weights`` as the decode kernels' contiguous operands."""
+    return [kernel_operand(w.detach(), device) for w in speller_weights(model)]
 
 
 def lm_operands(lm: charlm_mod.CharLM, device: torch.device) -> List[torch.Tensor]:

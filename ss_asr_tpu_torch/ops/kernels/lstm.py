@@ -1,13 +1,21 @@
-"""The packed LSTM time loop: CUDA kernel wrapper and its plain version.
+"""The packed LSTM time loop, forward and backward: CUDA kernel wrappers,
+their plain versions, and the autograd function over both.
 
-Kernel: ``csrc/lstm_fwd.cu`` (``ss_lstm_fwd``), which replaces the TPU
-kernel ``ss_asr_tpu/ops/pallas/lstm.py::_make_fwd_kernel`` and runs both
-directions of a BiLSTM layer in one launch.  The source's header says what
-bounds it on an H100 and how its design answers that.
+Kernels: ``csrc/lstm_fwd.cu`` (``ss_lstm_fwd``), which replaces the TPU
+kernel ``ss_asr_tpu/ops/pallas/lstm.py::_make_fwd_kernel``, and
+``csrc/lstm_bwd.cu`` (``ss_lstm_bwd``), which replaces
+``::_make_bwd_kernel`` and, with both directions of a layer in one launch,
+``ss_asr_tpu/ops/pallas/bilstm.py::_bi_bwd_kernel``.  The sources' headers
+say what bounds them on an H100 and how their design answers that.
 
-``lstm_fwd`` routes by device: a CUDA tensor launches the kernel (or
-raises), a CPU tensor runs ``lstm_seq_plain``, the time loop in PyTorch ops
-that the kernel is held against.
+``lstm_fwd`` and ``lstm_bwd`` route by device: a CUDA tensor launches the
+kernel (or raises), a CPU tensor runs ``lstm_seq_plain`` /
+``lstm_bwd_plain``, the time loops in PyTorch ops that the kernels are held
+against.  ``LSTMSeq`` is the differentiable loop (the port of
+``lstm_seq_pallas_vjp``): its forward is ``lstm_fwd``, its backward
+``lstm_bwd`` plus the ``W_hh`` gradient as one product outside the kernel.
+The kernels write through raw pointers, so autograd cannot see them: a
+direct ``lstm_fwd`` call on CUDA tensors that need a gradient raises.
 """
 
 from __future__ import annotations
@@ -18,8 +26,8 @@ import torch
 
 from ss_asr_tpu_torch.ops.kernels import build
 
-#: kernel launches made by ``lstm_fwd`` (one per call on a CUDA tensor)
-LAUNCHES = {"lstm_fwd": 0}
+#: kernel launches made by ``lstm_fwd`` / ``lstm_bwd`` (one per call on CUDA tensors)
+LAUNCHES = {"lstm_fwd": 0, "lstm_bwd": 0}
 
 
 def lstm_seq_plain(
@@ -50,6 +58,70 @@ def lstm_seq_plain(
     return y, cs
 
 
+def predecessors(a: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """The processing predecessor of every step of a [T, ...] stream: t-1
+    for the forward direction, t+1 for the reversed one, zero at the
+    sequence edge.  Exact for y and cs: past a length y is zero and cs
+    holds the frozen carry, which is zero where the reversed direction
+    starts (``ops/pallas/lstm.py:564-570``)."""
+    z = torch.zeros_like(a[:1])
+    return torch.cat([a[1:], z]) if reverse else torch.cat([z, a[:-1]])
+
+
+def lstm_bwd_plain(
+    gx: torch.Tensor, whh: torch.Tensor, lengths: torch.Tensor, y: torch.Tensor,
+    cs: torch.Tensor, dy: torch.Tensor, reverse: bool = False,
+) -> torch.Tensor:
+    """Adjoint of ``lstm_seq_plain`` for one direction -> dgx [T, B, 4H].
+
+    The gates are recomputed from gx and the predecessor state; the (dh,
+    dc) carries walk opposite to the forward and hold still past each
+    length, where dgates is zero (the TPU kernel ``_make_bwd_kernel``)."""
+    T, B, G = gx.shape
+    H = G // 4
+    h_prev, c_prev = predecessors(y, reverse), predecessors(cs, reverse)
+    gates = gx + h_prev @ whh
+    i, f, o = (torch.sigmoid(gates[..., k * H:(k + 1) * H]) for k in (0, 1, 3))
+    g = torch.tanh(gates[..., 2 * H:3 * H])
+    tanh_c = torch.tanh(cs)
+    lengths = lengths.to(gx.device)
+    dgx = torch.zeros_like(gx)
+    dh_c = gx.new_zeros(B, H)
+    dc_c = gx.new_zeros(B, H)
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        dh = dh_c + dy[t]
+        do = dh * tanh_c[t]
+        dct = dh * o[t] * (1.0 - tanh_c[t] * tanh_c[t]) + dc_c
+        dgates = torch.cat([dct * g[t] * i[t] * (1.0 - i[t]),
+                            dct * c_prev[t] * f[t] * (1.0 - f[t]),
+                            dct * i[t] * (1.0 - g[t] * g[t]),
+                            do * o[t] * (1.0 - o[t])], dim=-1)
+        valid = (t < lengths)[:, None]
+        dgates = torch.where(valid, dgates, torch.zeros_like(dgates))
+        dh_c = torch.where(valid, dgates @ whh.t(), dh_c)
+        dc_c = torch.where(valid, dct * f[t], dc_c)
+        dgx[t] = dgates
+    return dgx
+
+
+def _check(name: str, gx: torch.Tensor, whh: torch.Tensor, lengths: torch.Tensor,
+           reverse: Sequence[bool]) -> None:
+    D, T, B, G = gx.shape
+    H = G // 4
+    if whh.shape != (D, H, G) or len(reverse) != D or lengths.shape != (B,):
+        raise ValueError(
+            f"{name}: gx {tuple(gx.shape)}, whh {tuple(whh.shape)}, "
+            f"lengths {tuple(lengths.shape)}, {len(reverse)} directions")
+    if gx.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {gx.device}")
+
+
+def _operands(name: str, dev: torch.device, **tensors) -> None:
+    for key, t in tensors.items():
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name}: {key} must be contiguous float32 on {dev}")
+
+
 def lstm_fwd(
     gx: torch.Tensor, whh: torch.Tensor, lengths: torch.Tensor, reverse: Sequence[bool]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -57,21 +129,17 @@ def lstm_fwd(
 
     gx [D, T, B, 4H] float32; whh [D, H, 4H] float32; lengths [B];
     ``reverse[d]`` makes direction d walk time newest-first.  Returns
-    ``(y, cs)``, each [D, T, B, H]."""
+    ``(y, cs)``, each [D, T, B, H].  Differentiate through ``LSTMSeq``."""
+    _check("lstm_fwd", gx, whh, lengths, reverse)
     D, T, B, G = gx.shape
     H = G // 4
-    if whh.shape != (D, H, G) or len(reverse) != D or lengths.shape != (B,):
-        raise ValueError(
-            f"lstm_fwd: gx {tuple(gx.shape)}, whh {tuple(whh.shape)}, "
-            f"lengths {tuple(lengths.shape)}, {len(reverse)} directions")
     if gx.device.type == "cpu":
         outs = [lstm_seq_plain(gx[d], whh[d], lengths, reverse[d]) for d in range(D)]
         return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
-    if gx.device.type != "cuda":
-        raise ValueError(f"lstm_fwd: no kernel for device {gx.device}")
-    for name, t in (("gx", gx), ("whh", whh)):
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != gx.device:
-            raise ValueError(f"lstm_fwd: {name} must be contiguous float32 on {gx.device}")
+    if torch.is_grad_enabled() and (gx.requires_grad or whh.requires_grad):
+        raise RuntimeError("lstm_fwd: the CUDA kernel is invisible to autograd; "
+                           "differentiate through LSTMSeq.apply")
+    _operands("lstm_fwd", gx.device, gx=gx, whh=whh)
     lengths = lengths.to(device=gx.device, dtype=torch.int32).contiguous()
     y = torch.empty(D, T, B, H, device=gx.device, dtype=torch.float32)
     cs = torch.empty_like(y)
@@ -87,3 +155,61 @@ def lstm_fwd(
     build.check(err, "ss_lstm_fwd")
     build.count_launch(LAUNCHES, "lstm_fwd")
     return y, cs
+
+
+def lstm_bwd(
+    gx: torch.Tensor, whh: torch.Tensor, lengths: torch.Tensor, y: torch.Tensor,
+    cs: torch.Tensor, dy: torch.Tensor, reverse: Sequence[bool],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Adjoint of ``lstm_fwd`` for D directions -> ``(dgx [D, T, B, 4H],
+    dwhh [D, H, 4H])``.  y, cs are ``lstm_fwd``'s outputs, dy [D, T, B, H]
+    the cotangent of y.  dgx comes from the kernel (or its plain version);
+    dwhh = sum_t h_prev_t^T dgates_t is one batched product over shifted
+    views of y, outside the kernel (``ops/pallas/lstm.py:589-596``)."""
+    _check("lstm_bwd", gx, whh, lengths, reverse)
+    D, T, B, G = gx.shape
+    H = G // 4
+    if not (y.shape == cs.shape == dy.shape == (D, T, B, H)):
+        raise ValueError(f"lstm_bwd: y {tuple(y.shape)}, cs {tuple(cs.shape)}, "
+                         f"dy {tuple(dy.shape)} do not fit gx {tuple(gx.shape)}")
+    if gx.device.type == "cpu":
+        dgx = torch.stack([lstm_bwd_plain(gx[d], whh[d], lengths, y[d], cs[d], dy[d], reverse[d])
+                           for d in range(D)])
+    else:
+        dy = dy.contiguous()
+        _operands("lstm_bwd", gx.device, gx=gx, whh=whh, y=y, cs=cs, dy=dy)
+        lengths = lengths.to(device=gx.device, dtype=torch.int32).contiguous()
+        dgx = torch.empty_like(gx)
+        if T > 0 and B > 0:
+            lib = build.load_library()
+            rev_bits = sum(1 << d for d in range(D) if reverse[d])
+            err = lib.ss_lstm_bwd(
+                gx.data_ptr(), whh.data_ptr(), lengths.data_ptr(), y.data_ptr(), cs.data_ptr(),
+                dy.data_ptr(), dgx.data_ptr(), D, T, B, H, rev_bits, gx.device.index or 0,
+                torch.cuda.current_stream(gx.device).cuda_stream,
+            )
+            build.check(err, "ss_lstm_bwd")
+            build.count_launch(LAUNCHES, "lstm_bwd")
+    dwhh = torch.stack([torch.einsum("tbh,tbg->hg", predecessors(y[d], reverse[d]), dgx[d])
+                        for d in range(D)])
+    return dgx, dwhh
+
+
+class LSTMSeq(torch.autograd.Function):
+    """Differentiable packed LSTM loops: ``LSTMSeq.apply(gx, whh, lengths,
+    reverse) -> y [D, T, B, H]`` with the shapes of ``lstm_fwd``.  Gradients
+    flow to gx and whh; the forward saves gx, whh, lengths, y and cs."""
+
+    @staticmethod
+    def forward(ctx, gx, whh, lengths, reverse):
+        gx, whh = gx.contiguous(), whh.contiguous()
+        y, cs = lstm_fwd(gx, whh, lengths, reverse)
+        ctx.reverse = tuple(reverse)
+        ctx.save_for_backward(gx, whh, lengths, y, cs)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        gx, whh, lengths, y, cs = ctx.saved_tensors
+        dgx, dwhh = lstm_bwd(gx, whh, lengths, y, cs, dy, ctx.reverse)
+        return dgx, dwhh, None, None

@@ -20,7 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ss_asr_tpu_torch.ops.kernels.lstm import lstm_fwd, lstm_seq_plain
+from ss_asr_tpu_torch.ops.kernels.lstm import LSTMSeq, lstm_seq_plain
 
 
 def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -110,15 +110,16 @@ def lstm_scan(
 def bilstm(p: BiLSTM, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Bidirectional packed LSTM: [B, T, in] -> [B, T, 2H].
 
-    Both directions run in ONE call of the LSTM kernel wrapper (a grid
-    dimension per direction on the card; the plain loop per direction on
-    the CPU)."""
+    Both directions run in ONE call of the differentiable LSTM loop
+    ``LSTMSeq`` (a grid dimension per direction of kernels K2 and K3 on the
+    card; the plain loops per direction on the CPU), so the layer trains on
+    either device."""
     gx, whh = [], []
     for reverse in (False, True):
         w_ih, w_hh, b = p.direction(reverse)
         gx.append(input_gates(x, w_ih, b))
         whh.append(w_hh.t())
-    y, _ = lstm_fwd(torch.stack(gx), torch.stack(whh), lengths, (False, True))
+    y = LSTMSeq.apply(torch.stack(gx), torch.stack(whh), lengths, (False, True))
     # [2, T, B, H] -> [B, T, 2H]
     return torch.cat([y[0], y[1]], dim=-1).transpose(0, 1)
 

@@ -1,7 +1,8 @@
 """Parameter trees as flat ``.npz`` archives.
 
 Copied from ``ss_asr_tpu/utils/checkpoint.py`` (``save_pytree`` /
-``load_pytree``, the npz half; the orbax backend is not ported): a nested
+``load_pytree``, ``save_opt_state`` / ``load_opt_state`` and the snapshot
+helpers, the npz half; the orbax backend is not ported): a nested
 dict of arrays is stored with ``/``-joined tree paths as keys, so one file
 is readable by both packages.  Trees hold the JAX package's layout;
 ``ss_asr_tpu_torch.convert`` turns them into this package's state_dicts.
@@ -9,8 +10,10 @@ is readable by both packages.  Trees hold the JAX package's layout;
 
 from __future__ import annotations
 
+import glob
 import os
-from typing import Dict
+import re
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -48,3 +51,46 @@ def load_pytree(path: str) -> Dict:
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
     return _unflatten(flat)
+
+
+def exists(path: str) -> bool:
+    return os.path.isfile(path)
+
+
+def save_opt_state(path: str, leaves: List[np.ndarray]) -> None:
+    """Optimizer-state leaves as ``leaf_00000``, ``leaf_00001``, ... (the
+    JAX package's ``save_opt_state`` layout, ``jax.tree.leaves`` order;
+    ``convert.asr_opt_state_leaves`` gives that order)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **{f"leaf_{i:05d}": np.asarray(leaf) for i, leaf in enumerate(leaves)})
+    os.replace(tmp, path)
+
+
+def load_opt_state(path: str) -> List[np.ndarray]:
+    """The leaves ``save_opt_state`` (of either package) wrote, in order."""
+    with np.load(path) as z:
+        return [z[k] for k in sorted(z.files)]
+
+
+def snapshot_path(ckpdir: str, module_id: str, step: int, ext: str = ".npz") -> str:
+    """Step-stamped checkpoint path; zero-padded so lexical sort == step sort."""
+    return os.path.join(ckpdir, f"{module_id}.snap-{step:09d}{ext}")
+
+
+def list_snapshots(ckpdir: str, module_id: str) -> List[Tuple[int, str]]:
+    """All snapshots of a module, as (step, path) sorted ascending by step."""
+    out = []
+    for p in glob.glob(os.path.join(glob.escape(ckpdir), f"{module_id}.snap-*")):
+        m = re.fullmatch(rf"{re.escape(module_id)}\.snap-(\d+)\.npz", os.path.basename(p))
+        if m:
+            out.append((int(m.group(1)), p))
+    return sorted(out)
+
+
+def prune_snapshots(ckpdir: str, module_id: str, keep: int) -> List[str]:
+    """Delete all but the ``keep`` most recent snapshots; returns removed paths."""
+    removed = [p for _, p in list_snapshots(ckpdir, module_id)[: -keep or None]]
+    for p in removed:
+        os.remove(p)
+    return removed

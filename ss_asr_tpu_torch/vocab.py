@@ -1,14 +1,16 @@
 """Character vocabulary and id -> text mapping.
 
-Copied from ``ss_asr_tpu/vocab.py`` (the subset the serving path needs):
-the fixed 50-symbol inventory, ``SOS_ID=0`` (also the pad id),
-``EOS_ID=1``, and ``Mapper.translate``, which cuts after the first EOS and
-drops SOS/EOS.
+Copied from ``ss_asr_tpu/vocab.py`` (the subset the port needs): the
+fixed 50-symbol inventory, ``SOS_ID=0`` (also the pad id), ``EOS_ID=1``,
+``Mapper.encode`` (an index's normalised text -> ids) and
+``Mapper.translate``, which cuts after the first EOS and drops SOS/EOS.
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence
+
+import numpy as np
 
 CHARS = "abcdefghijklmnoprstuvxy0123456789"
 ICE_CHARS = "áéíóúýæöþð"
@@ -40,10 +42,15 @@ def trim_eos(sequence: Sequence[int]) -> List[int]:
 
 
 class Mapper:
-    """Index -> character mapping over the fixed vocabulary."""
+    """Character <-> index mapping over the fixed vocabulary."""
 
     def __init__(self, tokens: str = VOCAB):
+        self.mapping = {c: i for i, c in enumerate(tokens)}
         self.r_mapping = dict(enumerate(tokens))
+
+    def encode(self, text: str) -> np.ndarray:
+        """String -> int32 id array (no implicit SOS/EOS handling)."""
+        return np.array([self.mapping[c] for c in text], dtype=np.int32)
 
     def translate(self, seq: Sequence[int]) -> str:
         """Id sequence -> human string: cut after first EOS, drop SOS/EOS."""

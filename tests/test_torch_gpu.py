@@ -258,12 +258,144 @@ def test_spell_fwd_matches_plain(cuda, tf, sizes):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=0, msg=name)
 
 
-def test_spell_fwd_refuses_a_gradient(cuda):
+def test_gradient_flows_through_spellcore_and_direct_kernel_calls_refuse_it(cuda):
+    """las.attend_and_spell differentiates through SpellCore (K9 + K10) on
+    the card; a direct spell_fwd / lstm_fwd call whose inputs need a
+    gradient raises, since autograd cannot see the kernels."""
     cfg = las.ASRConfig(encoder_state_size=8, decoder_state_size=8, mlp_out_size=8, feature_dim=5)
     model, _ = _models(cfg, 8, 9, cuda)
     enc_h = torch.randn(2, 4, 16, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md port item 6"):
-        las.attend_and_spell(model, enc_h, torch.tensor([4, 2], device=cuda), 3)
+    lens = torch.tensor([4, 2], device=cuda)
+    before = dict(kspell.LAUNCHES)
+    logits, _ = las.attend_and_spell(model, enc_h, lens, 3)
+    logits.square().sum().backward()
+    assert kspell.LAUNCHES["spell_fwd"] == before["spell_fwd"] + 1
+    assert kspell.LAUNCHES["spell_bwd"] == before["spell_bwd"] + 1
+    assert enc_h.grad is not None and model.decoder.layer_1.weight_ih.grad is not None
+    comp = las.attention_precompute(model.attention, enc_h)
+    zeros = torch.zeros(3, 2, VOCAB_SIZE, device=cuda)
+    with pytest.raises(RuntimeError, match="SpellCore"):
+        kspell.spell_fwd(model, enc_h, comp, lens, torch.ones(3, device=cuda), zeros,
+                         torch.zeros(3, 2, 8, device=cuda))
+    gx = torch.randn(1, 3, 2, 32, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="LSTMSeq"):
+        klstm.lstm_fwd(gx, torch.zeros(1, 8, 32, device=cuda), lens, (False,))
+
+
+@pytest.mark.parametrize("D,reverse", [(1, (False,)), (1, (True,)), (2, (False, True))])
+@pytest.mark.parametrize("T,B,H", [(13, 5, 40), (1, 1, 8), (7, 17, 300)])
+def test_lstm_bwd_matches_plain(cuda, D, reverse, T, B, H):
+    rng = np.random.default_rng(T * B + H + 1)
+    gx = torch.from_numpy(rng.standard_normal((D, T, B, 4 * H)).astype(np.float32)).to(cuda)
+    whh = torch.from_numpy((rng.standard_normal((D, H, 4 * H)) / np.sqrt(H)).astype(np.float32))
+    whh = whh.to(cuda)
+    dy = torch.from_numpy(rng.standard_normal((D, T, B, H)).astype(np.float32)).to(cuda)
+    lens = rng.integers(0, T + 1, size=B)
+    lens[: min(B, 2)] = (0, 1)[: min(B, 2)]
+    lengths = torch.from_numpy(lens.astype(np.int32)).to(cuda)
+    y, cs = klstm.lstm_fwd(gx, whh, lengths, reverse)
+    before = klstm.LAUNCHES["lstm_bwd"]
+    dgx, dwhh = klstm.lstm_bwd(gx, whh, lengths, y, cs, dy, reverse)
+    torch.cuda.synchronize()
+    assert klstm.LAUNCHES["lstm_bwd"] == before + 1
+    for d in range(D):
+        want = klstm.lstm_bwd_plain(gx[d], whh[d], lengths, y[d], cs[d], dy[d], reverse[d])
+        torch.testing.assert_close(dgx[d], want, atol=1e-5, rtol=0)
+        want_w = torch.einsum("tbh,tbg->hg", klstm.predecessors(y[d], reverse[d]), want)
+        torch.testing.assert_close(dwhh[d], want_w, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("tf", [1.0, 0.5], ids=["teacher", "sampled"])
+@pytest.mark.parametrize("sizes", [
+    dict(encoder_state_size=8, decoder_state_size=8, mlp_out_size=8, feature_dim=5),
+    dict(encoder_state_size=24, decoder_state_size=40, mlp_out_size=300, feature_dim=7),
+])
+def test_spell_bwd_matches_plain(cuda, tf, sizes):
+    from ss_asr_tpu_torch.ops.kernels.decode import speller_weights
+
+    cfg = las.ASRConfig(**sizes)
+    model, _ = _models(cfg, 8, 10, cuda)
+    B, L = 6, 11
+    g = torch.Generator().manual_seed(4)
+    tf_draws, gumbel = las.draw_scheduled_sampling(L, B, tf, cfg, g, cuda)
+    ids = torch.randint(0, VOCAB_SIZE, (L, B), generator=g).to(cuda)
+    with torch.no_grad():
+        enc_h, comp_h, enc_lens = _memory(model, np.random.default_rng(6), cuda, B=B)
+        S = enc_h.shape[1]
+        streams = kspell.spell_fwd(model, enc_h, comp_h, enc_lens, tf_draws, gumbel,
+                                   model.embed.weight[ids])[1:]
+        dlogits = torch.randn(L, B, VOCAB_SIZE, generator=g).to(cuda)
+        daext = torch.randn(L, B, S, generator=g).to(cuda)
+        W = [w.detach() for w in speller_weights(model)]
+        before = kspell.LAUNCHES["spell_bwd"]
+        got = kspell.spell_bwd(enc_h, comp_h, dlogits, daext, streams, W)
+        torch.cuda.synchronize()
+        assert kspell.LAUNCHES["spell_bwd"] == before + 1
+        want = kspell.spell_bwd_plain(enc_h, comp_h, dlogits, daext, streams, W)
+    for name, a, b in zip(("dg1", "dg2", "de", "dqp", "demb"), got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5, msg=name)
+
+
+def _train_step_grads(model, x, x_lens, y, tf_draws, gumbel):
+    from ss_asr_tpu_torch.train import losses
+
+    model.zero_grad(set_to_none=True)
+    _, logits, _ = las.asr_forward(model, x, x_lens, y.shape[1] - 1, teacher=y,
+                                   tf_draws=tf_draws, gumbel=gumbel)
+    loss = losses.masked_ce_per_utt(logits, y[:, 1:], y)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad for n, p in model.named_parameters()}
+
+
+def test_listener_grads_on_the_card_match_the_plain_path(cuda):
+    """Every parameter, the listener's included, gets a gradient on the card
+    (K2 / K3 under LSTMSeq, K9 / K10 under SpellCore) equal to the CPU's."""
+    cfg = las.ASRConfig(encoder_state_size=16, decoder_state_size=16, mlp_out_size=8,
+                        feature_dim=5)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((4, 48, 5)).astype(np.float32))
+    x_lens = torch.tensor([48, 40, 17, 9], dtype=torch.int32)
+    y = torch.from_numpy(rng.integers(2, VOCAB_SIZE, (4, 8))).long()
+    y[:, 0] = 0
+    tf_draws, gumbel = las.draw_scheduled_sampling(7, 4, 0.5, cfg, torch.Generator().manual_seed(0))
+    out = []
+    for dev in ("cpu", cuda):
+        model, _ = _models(cfg, 8, 12, dev)
+        out.append(_train_step_grads(model, x.to(dev), x_lens.to(dev), y.to(dev),
+                                     tf_draws.to(dev), gumbel.to(dev)))
+    (want_loss, want), (got_loss, got) = out
+    assert got_loss == pytest.approx(want_loss, rel=1e-5)
+    for name, g in got.items():
+        assert g is not None, name
+        torch.testing.assert_close(g.cpu(), want[name], atol=1e-5, rtol=1e-4, msg=name)
+
+
+def test_asr_trainer_step_on_the_card_matches_the_cpu(cuda, tmp_path):
+    from ss_asr_tpu_torch.train.asr_trainer import ASRTrainer
+    from ss_asr_tpu_torch.train.solver import make_paras
+    from ss_asr_tpu_torch.utils.checkpoint import save_pytree
+
+    mdl = dict(encoder_state_size=16, decoder_state_size=16, mlp_out_size=8, feature_dim=5,
+               tf_rate=0.5)
+    config = {"asr": {"opt": {"type": "Adadelta", "learning_rate": 1.0}, "mdl": mdl}}
+    tree = convert.init_asr_numpy(2, las.ASRConfig(**mdl))
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((4, 40, 5)).astype(np.float32))
+    x_lens = torch.tensor([40, 31, 22, 9], dtype=torch.int32)
+    y = torch.from_numpy(rng.integers(2, VOCAB_SIZE, (4, 9))).long()
+    y[:, 0] = 0
+    out = []
+    for dev in ("cpu", "cuda"):
+        save_pytree(str(tmp_path / "result" / dev / "asr.npz"), tree)
+        t = ASRTrainer(config, make_paras(name=dev, logdir=str(tmp_path / "runs"),
+                                          ckpdir=str(tmp_path / "result"), verbose=False),
+                       device=dev)
+        t.set_model()
+        loss, _ = t.step(x.to(dev), x_lens.to(dev), y.to(dev))
+        out.append((float(loss), convert.tree_leaves(t.params_tree())))
+    assert out[1][0] == pytest.approx(out[0][0], rel=1e-5)
+    for a, b in zip(out[1][1], out[0][1]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
 
 
 def test_beam_transcriber_on_the_card_matches_the_cpu(cuda):

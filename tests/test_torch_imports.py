@@ -33,7 +33,8 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 
 #: every kernel wrapper of the port
-WRAPPERS = [klstm.lstm_fwd, kdecode.greedy_decode, kbeam.beam_device, kspell.spell_fwd]
+WRAPPERS = [klstm.lstm_fwd, klstm.lstm_bwd, kdecode.greedy_decode, kbeam.beam_device,
+            kspell.spell_fwd, kspell.spell_bwd]
 
 
 def _modules():
@@ -88,8 +89,8 @@ def test_library_name_follows_the_sources(tmp_path):
     a = build.library_path(tmp_path)
     assert a == build.library_path(tmp_path) and a.parent == tmp_path
     assert a.name.startswith("libss_asr_kernels_") and a.suffix == ".so"
-    assert {s.name for s in build.sources()} >= {"lstm_fwd.cu", "greedy_decode.cu",
-                                                  "beam_decode.cu", "spell_fwd.cu"}
+    assert {s.name for s in build.sources()} >= {"lstm_fwd.cu", "lstm_bwd.cu", "greedy_decode.cu",
+                                                  "beam_decode.cu", "spell_fwd.cu", "spell_bwd.cu"}
     # every C entry point the wrappers call has its signature declared
     called = set()
     for fn in WRAPPERS:
