@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving, training and data-preparation paths once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout, one card
 
@@ -44,6 +45,19 @@ Phases, in order; any failure exits non-zero:
      five streams, each held by a float64 anchor: its relative L2 error
      against a float64 run of the plain version at most 4x the plain
      float32 version's own error against that run, and at most 1e-4.
+   * fbank (K11, the fused log-mel frontend) on reflect-padded signals at
+     its callers' shapes: the training batch (B = 32, 512 frames, sr 22050,
+     ragged), a preprocess batch (B = 64, sr 16000, rows of one sample), the
+     server batch (B = 8) and one streaming block.  The log magnifies
+     summation-order differences without limit on silent frames, so: within
+     1e-4 of fbank_plain in the log domain for every energy within 60 dB of
+     its frame's peak, and every energy within 1e-5 of the row's largest in
+     the linear domain.
+   Beside each kernel's time stand its bound (the larger of its float32
+   operations over 67 TFLOP/s and its bytes, inputs once and outputs once,
+   over 3.35 TB/s) and, where one PyTorch call computes the same function,
+   that call's time: a cuDNN ``nn.LSTM`` layer for K2 (forward) and K3
+   (forward + backward), the two-matmul pipeline for K11.
    Kernel and plain times are CUDA-event medians after a warm-up; the
    decode kernels are timed over all 200 steps (an EOS bias of -50 keeps
    every row decoding), which is the time the JSON line reports.
@@ -62,7 +76,8 @@ Phases, in order; any failure exits non-zero:
    Each serving path (each phase's batch, each route) zeroes the kernels'
    launch counters just before its requests (after one warm-up request)
    and reads them just after its last reply; every kernel the path runs
-   must have launched, and the JSON line's launches sum these counts.
+   must have launched (K11 on every one of them: the server is in signal
+   mode), and the JSON line's launches sum these counts.
 6. The train step at the flagship (B = 32, T = 512 frames from seeded
    waveforms, L = 48, conf/default.yaml's Adadelta): an ``ASRTrainer`` on
    the card and one on the CPU (plain versions) take one step on the same
@@ -79,8 +94,23 @@ Phases, in order; any failure exits non-zero:
    ids): 30 steps of the one batch, whose loss must fall, writing
    ``asr.npz``, ``asr_opt.npz`` and ``tracker.json``; a second invocation
    resumes at step 30.
-8. One JSON line of kernels, the nvidia-smi line, and last the contract
-   line ``{"ok": true, "device": {...}}``.
+8. Data preparation and the semi-supervised trainers: ``cli.mkdata`` and
+   ``cli.preprocess generic`` as subprocesses on 160 tone utterances at
+   16 kHz (K11 must launch there; ``index.tsv`` lists the corpus; every
+   fbank equals the plain frontend by K11's rule).  Then at the full width
+   of conf/default.yaml one TAE step (B = 64), one SAE step (B = 32, T =
+   512) and one ADV D-step and G-step (B = 32): each loss and every
+   gradient on the card against the CPU's plain versions by the
+   float64-anchored rule of phase 6; then timed updates with the launch
+   counters zeroed before and read after (K2 / K3, and K9 / K10 for the
+   TAE, must launch), every parameter outside the optimizer's mask
+   bit-unchanged and every one inside moved.  Then ``cli.train Seed`` as a
+   subprocess on the preprocessed corpus (TAE -> ADV -> SAE, the three ASR
+   relays written) and ``cli.train ASRTrainer`` from the last relay, whose
+   loss must fall.
+9. One JSON line of kernels (launches on the paths above, error, kernel /
+   plain / library times, bound), the nvidia-smi line, and last the
+   contract line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -128,6 +158,10 @@ CLI_STEPS = 30  # steps of cli.train on one repeated batch
 ANCHOR_RATIO = 4.0  # a backward kernel's error vs float64: at most 4x the plain float32's
 ANCHOR_MAX = 1e-4  # ... and at most this relative L2
 STEP_FLOOR = 1e-5  # the train step: card error vs float64 within 4x the CPU's, or below this
+PRE_UTTS = 160  # utterances of the preprocess phase's corpus (two full groups of 64 and a part)
+PRE_SR = 16000  # its sample rate (the tone corpus is resampled from 8 kHz)
+AUX_STEPS = 5  # timed updates of each auxiliary trainer (the median is reported)
+SEED_EPOCHS = {"tae": 6, "adv": 2, "sae": 2, "asr": 3}  # epochs per stage of the Seed run
 
 
 def fail(msg: str) -> None:
@@ -164,7 +198,7 @@ def check_lstm(torch, rng, asr_tree):
     from ss_asr_tpu_torch.ops.kernels import lstm as klstm
 
     H = asr_tree["encoder"]["blstm4"]["fwd"]["w_hh"].shape[0]
-    err_max, ms, plain_ms = 0.0, 0.0, 0.0
+    err_max, ms, plain_ms, lib_ms, ops, moved = 0.0, 0.0, 0.0, 0.0, 0.0, 0
     # frames into each listener layer: the pyramid halves time three times
     for layer, T in zip(("pblstm1", "pblstm2", "pblstm3", "blstm4"),
                         (FRAMES, FRAMES // 2, FRAMES // 4, FRAMES // 8)):
@@ -184,14 +218,21 @@ def check_lstm(torch, rng, asr_tree):
         k_ms = cuda_ms(torch, lambda: klstm.lstm_fwd(gx, whh, lengths, rev))
         p_ms = cuda_ms(torch, lambda: [klstm.lstm_seq_plain(gx[d], whh[d], lengths, rev[d])
                                        for d in range(2)], reps=3)
+        l_ms = cudnn_lstm_ms(torch, p["fwd"]["w_ih"].shape[0], H, T, B, backward=False)
         print(f"lstm_fwd {layer} T={T} B={B} H={H} 2 dirs: y max_abs_err {err:.3e} "
-              f"cs max_abs_err {err_cs:.3e} kernel {k_ms:.3f} ms plain {p_ms:.3f} ms", flush=True)
+              f"cs max_abs_err {err_cs:.3e} kernel {k_ms:.3f} ms plain {p_ms:.3f} ms "
+              f"cuDNN nn.LSTM forward {l_ms:.3f} ms", flush=True)
         if not (err <= LSTM_TOL and err_cs <= LSTM_TOL):
             fail(f"lstm_fwd {layer}: y err {err}, cs err {err_cs} > {LSTM_TOL}")
         err_max = max(err_max, err)
         ms += k_ms
         plain_ms += p_ms
-    return {"max_abs_err": err_max, "ms": ms, "plain_ms": plain_ms}
+        lib_ms += l_ms
+        ops += 2 * T * B * (8.0 * H * H + 24 * H)  # h @ W_hh, then the cell
+        moved += nbytes(gx, whh, lengths, y, cs)
+    b_ms, b_by = bound(ops, moved)
+    return {"max_abs_err": err_max, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def plain_gaps(torch, model, enc_h, comp_h, enc_lens, toks, lm, lm_weight):
@@ -361,6 +402,7 @@ def check_decode(torch, rng, model, lm):
     from ss_asr_tpu_torch.vocab import EOS_ID
 
     enc_h, comp_h, enc_lens = listener_memory(torch, rng, model, B)
+    ws, lm_ws = kdec.speller_operands(model, enc_h.device), kdec.lm_operands(lm, enc_h.device)
     out = {}
     for name, use_lm in (("greedy_decode", False), ("greedy_decode_lm", True)):
         lm_ = lm if use_lm else None
@@ -408,7 +450,11 @@ def check_decode(torch, rng, model, lm):
         print(f"{name} full {MAX_STEPS} steps B={B} S={enc_h.shape[1]}: kernel {k_ms:.3f} ms "
               f"({1e3 * k_ms / MAX_STEPS:.1f} us/step), plain {p_ms:.3f} ms "
               f"({1e3 * p_ms / MAX_STEPS:.1f} us/step)", flush=True)
-        out[name].update(ms=k_ms, plain_ms=p_ms)
+        # all MAX_STEPS steps ran: what this run's data needed
+        b_ms, b_by = bound(
+            B * MAX_STEPS * speller_row_ops(ws, enc_h.shape[1], lm_ws if use_lm else None),
+            nbytes(enc_h, comp_h, enc_lens, toks, *ws, *(lm_ws if use_lm else ())))
+        out[name].update(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
     return out
 
 
@@ -431,7 +477,10 @@ def check_beam(torch, rng, model, lm):
     from ss_asr_tpu_torch.ops.kernels import beam as kbeam
     from ss_asr_tpu_torch.vocab import EOS_ID
 
+    from ss_asr_tpu_torch.ops.kernels.decode import lm_operands, speller_operands
+
     enc_h, comp_h, enc_lens = listener_memory(torch, rng, model, B)
+    ws, lm_ws = speller_operands(model, enc_h.device), lm_operands(lm, enc_h.device)
     V = model.cfg.vocab_size
     # the float64 witness of near-tied divergences
     model64, lm64 = copy.deepcopy(model).double(), copy.deepcopy(lm).double()
@@ -535,15 +584,19 @@ def check_beam(torch, rng, model, lm):
                     running, enc_h, comp_h, enc_lens, K, MAX_STEPS, lm_, 0.5))
                 p_ms = cuda_ms(torch, lambda: kbeam.beam_scan_plain(
                     running, enc_h, comp_h, enc_lens, K, MAX_STEPS, lm_, 0.5), reps=3)
-                toks = kbeam.beam_device(running, enc_h, comp_h, enc_lens, K, MAX_STEPS, lm_,
-                                         0.5)[0]
+                front = kbeam.beam_device(running, enc_h, comp_h, enc_lens, K, MAX_STEPS, lm_, 0.5)
+                toks = front[0]
             if bool((toks == EOS_ID).any()):
                 fail(f"{name} K={K}: an EOS bias of -50 still emitted EOS")
             print(f"{name} K={K} full {MAX_STEPS} steps B={B} S={enc_h.shape[1]}: kernel "
                   f"{k_ms:.3f} ms ({1e3 * k_ms / MAX_STEPS:.1f} us/step), plain {p_ms:.3f} ms "
                   f"({1e3 * p_ms / MAX_STEPS:.1f} us/step)", flush=True)
             if K == BEAM_WIDTHS[0]:  # the default config's width goes into the JSON
-                out[name].update(ms=k_ms, plain_ms=p_ms)
+                use = lm_ws if lm_ is not None else None
+                b_ms, b_by = bound(B * K * MAX_STEPS * speller_row_ops(ws, enc_h.shape[1], use),
+                                   nbytes(enc_h, comp_h, enc_lens, *front, *ws, *(use or ())))
+                out[name].update(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+                                 bound_by=b_by)
     return out
 
 
@@ -552,6 +605,7 @@ def check_spell(torch, rng, model):
     shape, teacher-forced, sampled and greedy."""
     from ss_asr_tpu_torch.models import las
     from ss_asr_tpu_torch.ops.kernels import spell as kspell
+    from ss_asr_tpu_torch.ops.kernels.decode import speller_operands
     from ss_asr_tpu_torch.vocab import VOCAB_SIZE
 
     enc_all, comp_all, lens_all = listener_memory(torch, rng, model, SPELL_SHAPES[0][0])
@@ -581,7 +635,10 @@ def check_spell(torch, rng, model):
                 fail(f"spell_fwd B={Bs} L={L} {mode}: max_abs_err {err} > {SPELL_TOL}")
             res["max_abs_err"] = max(res["max_abs_err"], err)
             if (Bs, L, tf) == (*SPELL_SHAPES[1], 1.0):  # the alignment pass of the server
-                res.update(ms=k_ms, plain_ms=p_ms)
+                ws = speller_operands(model, enc_h.device)
+                b_ms, b_by = bound(Bs * L * speller_row_ops(ws, enc_h.shape[1]),
+                                   nbytes(*args[1:], *ws, *got))
+                res.update(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
     return {"spell_fwd": res}
 
 
@@ -615,10 +672,11 @@ def launch_counters():
     """Every kernel wrapper's launch counter."""
     from ss_asr_tpu_torch.ops.kernels import beam as kbeam
     from ss_asr_tpu_torch.ops.kernels import decode as kdec
+    from ss_asr_tpu_torch.ops.kernels import frontend as kfe
     from ss_asr_tpu_torch.ops.kernels import lstm as klstm
     from ss_asr_tpu_torch.ops.kernels import spell as kspell
 
-    return (klstm.LAUNCHES, kdec.LAUNCHES, kbeam.LAUNCHES, kspell.LAUNCHES)
+    return (klstm.LAUNCHES, kdec.LAUNCHES, kbeam.LAUNCHES, kspell.LAUNCHES, kfe.LAUNCHES)
 
 
 def zero_launches():
@@ -779,7 +837,7 @@ def default_routes(torch, t, config, paths, sig, long_sig, stream_sig, new_asr_t
         print("serve default: /reload 200; the next reply equals a transcriber loaded from the "
               "new checkpoint", flush=True)
 
-    dec = ("lstm_fwd", "beam_decode_lm")
+    dec = ("fbank", "lstm_fwd", "beam_decode_lm")
     return [("?detail", detail, dec + ("spell_fwd",)), ("?long", long, dec),
             ("/stream", stream, dec), ("/reload", reload, dec)]
 
@@ -831,7 +889,7 @@ def check_lstm_bwd(torch, rng, asr_tree):
         return dgx, dwhh
 
     H = asr_tree["encoder"]["blstm4"]["fwd"]["w_hh"].shape[0]
-    err_max, ms, plain_ms = 0.0, 0.0, 0.0
+    err_max, ms, plain_ms, lib_ms, ops, moved = 0.0, 0.0, 0.0, 0.0, 0.0, 0
     rev = (False, True)
     for layer, T in zip(("pblstm1", "pblstm2", "pblstm3", "blstm4"),
                         (FRAMES, FRAMES // 2, FRAMES // 4, FRAMES // 8)):
@@ -854,12 +912,20 @@ def check_lstm_bwd(torch, rng, asr_tree):
             k_ms = cuda_ms(torch, lambda: klstm.lstm_bwd(gx, whh, lengths, y, cs, dy, rev))
             p_ms = cuda_ms(torch, lambda: plain(gx, whh, lengths, y, cs, dy, rev), reps=3)
         err = float((got[0] - want[0]).abs().max())
+        l_ms = cudnn_lstm_ms(torch, p["fwd"]["w_ih"].shape[0], H, T, TRAIN_B, backward=True)
         print(f"lstm_bwd {layer} T={T} B={TRAIN_B} H={H} 2 dirs: dgx max_abs_err {err:.3e}; "
-              f"kernel {k_ms:.3f} ms plain {p_ms:.3f} ms", flush=True)
+              f"kernel {k_ms:.3f} ms plain {p_ms:.3f} ms cuDNN nn.LSTM forward + backward "
+              f"{l_ms:.3f} ms", flush=True)
         err_max = max(err_max, err)
         ms += k_ms
         plain_ms += p_ms
-    return {"max_abs_err": err_max, "ms": ms, "plain_ms": plain_ms}
+        lib_ms += l_ms
+        # the gate recompute, dgates @ W_hh^T and the dW_hh product, then the cell's adjoint
+        ops += 2 * T * TRAIN_B * (3 * 8.0 * H * H + 40 * H)
+        moved += nbytes(gx, whh, lengths, y, cs, dy, *got)
+    b_ms, b_by = bound(ops, moved)
+    return {"max_abs_err": err_max, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def check_spell_bwd(torch, rng, model):
@@ -901,8 +967,165 @@ def check_spell_bwd(torch, rng, model):
               f"streams max_abs_err {err:.3e}; kernel {k_ms:.3f} ms plain {p_ms:.3f} ms", flush=True)
         res["max_abs_err"] = max(res["max_abs_err"], err)
         if tf == 0.9:  # the train step's rate
-            res.update(ms=k_ms, plain_ms=p_ms)
+            # each forward product has two adjoint products' worth of work: the gate
+            # recompute and the product with the transposed weight
+            b_ms, b_by = bound(2 * Bs * L * speller_row_ops(W, S),
+                               nbytes(enc_h, comp_h, dlogits, daext, *streams, *W, *got))
+            res.update(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
     return {"spell_bwd": res}
+
+
+FBANK_LOG_TOL = 1e-4  # K11 vs plain, log domain, energies within FBANK_FLOOR_DB of the frame's peak
+FBANK_FLOOR_DB = 60.0
+FBANK_LIN_TOL = 1e-5  # ... and every energy, linear domain, relative to the row's largest
+POOL_TOL = 2e-2  # a gradient behind max-pools: relative L2 where a near-tied window flipped
+TONE_FLOOR_DB = 30.0  # the log-domain floor on the pure-tone corpus, which has no noise floor
+PEAK_F32 = 67e12  # H100 SXM, float32 outside the tensor cores, FLOP/s
+PEAK_BYTES = 3.35e12  # H100 SXM, device memory, bytes/s
+
+
+def bound(ops: float, nbytes: float):
+    """The least time the card could take, ms, and what binds it: float32
+    operations at the FMA peak against bytes (inputs read once, outputs
+    written once) at the memory rate."""
+    t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def speller_row_ops(ws, S, lm_ws=None) -> float:
+    """Float32 operations of one attend-and-spell step of one row: the
+    products with phi, the two LSTM cells and char_trans (``speller_weights``
+    order), the attention's scores and context over S memory steps, and with
+    ``lm_ws`` (``lm_operands`` order) the LM's two GRU cells and output."""
+    ops = 2.0 * sum(ws[i].numel() for i in (0, 1, 2, 4, 5, 7))
+    ops += 2.0 * S * (ws[0].shape[1] + ws[1].shape[0] - ws[2].shape[0])  # S * (M + F)
+    if lm_ws is not None:
+        ops += 2.0 * sum(w.numel() for w in lm_ws[1:] if w.dim() == 2)
+    return ops
+
+
+def cudnn_lstm_ms(torch, in_dim, H, T, Bn, backward: bool) -> float:
+    """The library call beside K2 / K3: one bidirectional ``torch.nn.LSTM``
+    layer (cuDNN, float32) at the same T, B and H, forward alone or forward
+    + backward.  It runs the input projection too and does no packed masking;
+    nothing on a main path calls it."""
+    lstm = torch.nn.LSTM(in_dim, H, bidirectional=True).to(DEVICE)
+    x = torch.randn(T, Bn, in_dim, device=DEVICE, requires_grad=backward)
+    dy = torch.randn(T, Bn, 2 * H, device=DEVICE)
+
+    def fwd():
+        with torch.no_grad():
+            lstm(x)
+
+    def fwd_bwd():
+        lstm(x)[0].backward(dy)
+
+    return cuda_ms(torch, fwd_bwd if backward else fwd)
+
+
+def fbank_errors(torch, got, want, floor_db=FBANK_FLOOR_DB):
+    """K11's tolerance rule -> (log error, linear error).  The log magnifies
+    summation-order differences without limit on digitally silent frames, so
+    the log domain holds only energies within ``floor_db`` of their frame's
+    peak (max abs difference of log-mels); every energy is held in the linear
+    domain, |exp(got) - exp(want)| relative to the row's largest energy."""
+    import math
+
+    floor = want.amax(-1, keepdim=True) - floor_db * math.log(10) / 10
+    above = want > floor
+    log_err = float((got - want).abs()[above].max()) if bool(above.any()) else 0.0
+    lin = (got.double().exp() - want.double().exp()).abs()
+    lin_err = float((lin / want.double().exp().amax((-2, -1), keepdim=True)).max())
+    return log_err, lin_err
+
+
+def check_fbank(torch, rng, sigs, stream_sig):
+    """K11 against fbank_plain on padded signals at the shapes of its callers:
+    the training batch (TRAIN_B rows of up to FRAMES frames at SR, ragged),
+    a preprocess batch (64 rows, sr 16000, a 20480-sample bucket grid, the
+    last rows padding of 1 sample), the server batch (the N_REQUESTS signals
+    on the half-second grid) and one streaming block.  Timed at the training
+    batch beside the two-matmul pipeline and the bound."""
+    import numpy as np
+
+    from ss_asr_tpu_torch.ops import frontend as fe
+    from ss_asr_tpu_torch.ops.kernels import frontend as kfe
+
+    def tone_batch(sr, lens, n_buf):
+        buf = np.zeros((len(lens), n_buf), np.float32)
+        for i, k in enumerate(lens):
+            t = np.arange(k) / sr
+            buf[i, :k] = sum(0.2 * np.sin(2 * np.pi * f * t) for f in rng.uniform(100, 3000, 3))
+            buf[i, :k] += 0.05 * rng.standard_normal(k)
+        return buf
+
+    hop = fe.frame_params(SR)[1]
+    n_train = (rng.integers(TRAIN_MIN_FRAMES, FRAMES + 1, size=TRAIN_B) - 1) * hop + 1
+    n_train[0] = (FRAMES - 1) * hop + 1
+    n_pre = np.concatenate([rng.integers(16000, 4 * 16000, size=60), np.ones(4, np.int64)])
+    step = SR // 2
+    n_srv = np.array([len(s) for s in sigs])
+    srv = np.zeros((len(sigs), -(-int(n_srv.max()) // step) * step), np.float32)
+    for i, s in enumerate(sigs):
+        srv[i, : len(s)] = s
+    cases = [("train", SR, tone_batch(SR, n_train, int(n_train.max())), n_train),
+             ("preprocess", 16000, tone_batch(16000, n_pre, -(-int(n_pre.max()) // 20480) * 20480),
+              n_pre),
+             ("server", SR, srv, n_srv)]
+    res = {"max_abs_err": 0.0}
+    for name, sr, buf, lens in cases:
+        n_fft, hop = fe.frame_params(sr)
+        y = torch.from_numpy(buf).to(DEVICE)
+        yp = fe.reflect_padded(y, torch.from_numpy(lens).to(DEVICE), n_fft // 2)
+        nf = int(fe.num_frames(buf.shape[1], n_fft, hop))
+        wbasis, mel, wil = fe._projections(sr, fe.N_DIMS, fe.WIN_MS, fe.STRIDE_MS, yp.device)
+        args = (yp, wbasis, mel, nf, n_fft, hop)
+        with torch.inference_mode():
+            got = kfe.fbank(*args, wil)
+            torch.cuda.synchronize()
+            want = kfe.fbank_plain(*args)
+            # the valid frames hold the claim; the masked ones read another row's reflection
+            valid = (torch.arange(nf, device=DEVICE)[None, :]
+                     < fe.num_frames(torch.from_numpy(lens).to(DEVICE), n_fft, hop)[:, None])
+            log_err, lin_err = fbank_errors(torch, got, want)
+            k_ms = cuda_ms(torch, lambda: kfe.fbank(*args, wil), reps=9)
+            p_ms = cuda_ms(torch, lambda: kfe.fbank_plain(*args), reps=9)
+        n_bins, n_mels = mel.shape
+        ops = buf.shape[0] * nf * (2 * n_fft * 2 * n_bins + 3 * n_bins + 2 * n_bins * n_mels)
+        b_ms, b_by = bound(ops, nbytes(yp, wbasis, mel, got))
+        print(f"fbank {name} B={buf.shape[0]} nf={nf} sr={sr} ({int(valid.sum())} valid frames): "
+              f"log max_abs_err {log_err:.3e} (energies within {FBANK_FLOOR_DB:.0f} dB of the "
+              f"frame's peak), linear err {lin_err:.3e} of the row's largest; kernel {k_ms:.3f} ms "
+              f"plain (two-matmul pipeline) {p_ms:.3f} ms bound {b_ms:.4f} ms ({b_by})", flush=True)
+        if not (log_err <= FBANK_LOG_TOL and lin_err <= FBANK_LIN_TOL):
+            fail(f"fbank {name}: log err {log_err} > {FBANK_LOG_TOL} or linear err {lin_err} > "
+                 f"{FBANK_LIN_TOL}")
+        res["max_abs_err"] = max(res["max_abs_err"], log_err)
+        if name == "train":
+            res.update(ms=k_ms, plain_ms=p_ms, library_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # one block of the streaming frontend: a [1, block] chunk of the padded stream
+    sfe = fe.StreamingFrontend(SR, device=DEVICE)
+    n_fft, hop = sfe.n_fft, sfe.hop
+    chunk = torch.from_numpy(stream_sig[: sfe.block].copy()).to(DEVICE)[None]
+    nf = (sfe.block - n_fft) // hop + 1
+    wbasis, mel, wil = fe._projections(SR, fe.N_DIMS, fe.WIN_MS, fe.STRIDE_MS, chunk.device)
+    with torch.inference_mode():
+        got = kfe.fbank(chunk, wbasis, mel, nf, n_fft, hop, wil)
+        torch.cuda.synchronize()
+        want = kfe.fbank_plain(chunk, wbasis, mel, nf, n_fft, hop)
+        log_err, lin_err = fbank_errors(torch, got, want)
+        k_ms = cuda_ms(torch, lambda: kfe.fbank(chunk, wbasis, mel, nf, n_fft, hop, wil), reps=9)
+    print(f"fbank stream block {sfe.block} samples nf={nf}: log max_abs_err {log_err:.3e}, linear "
+          f"err {lin_err:.3e}; kernel {k_ms:.3f} ms", flush=True)
+    if not (log_err <= FBANK_LOG_TOL and lin_err <= FBANK_LIN_TOL):
+        fail(f"fbank stream block: log err {log_err}, linear err {lin_err}")
+    res["max_abs_err"] = max(res["max_abs_err"], log_err)
+    return {"fbank": res}
 
 
 def train_config(config, idx, n_epochs):
@@ -967,7 +1190,8 @@ def profile_steps(torch, step, n):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     groups = {"lstm_fwd (K2)": "lstm_fwd_kernel", "lstm_bwd (K3)": "lstm_bwd_kernel",
-              "spell_fwd (K9)": "spell_fwd_kernel", "spell_bwd (K10)": "spell_bwd_kernel"}
+              "spell_fwd (K9)": "spell_fwd_kernel", "spell_bwd (K10)": "spell_bwd_kernel",
+              "fbank (K11)": "fbank_kernel"}
     split, spans = {}, []
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1071,7 +1295,7 @@ def check_train_step(torch, rng, config, asr_tree, tmp):
           f"clip + Adadelta): median of {TRAIN_STEPS} {ms:.3f} ms, {TRAIN_B / ms * 1e3:.1f} utt/s "
           f"(min {min(times):.3f}, max {max(times):.3f}); losses {float(losses[0]):.4f} -> "
           f"{float(losses[-1]):.4f}; launches {launches}", flush=True)
-    for name in ("lstm_fwd", "lstm_bwd", "spell_fwd", "spell_bwd"):
+    for name in ("fbank", "lstm_fwd", "lstm_bwd", "spell_fwd", "spell_bwd"):
         if launches[name] < 1:
             fail(f"train step: launched {name} {launches[name]} times")
     if not all(bool(torch.isfinite(v)) for v in losses):
@@ -1152,6 +1376,351 @@ def check_cli_train(rng, config, tmp):
         fail(f"cli.train did not resume at step {CLI_STEPS}: {resumed}, tracker step {step}")
 
 
+def check_preprocess(torch, tmp):
+    """``cli.mkdata`` then ``cli.preprocess generic`` as subprocesses on
+    PRE_UTTS tone utterances resampled to 16 kHz: the frontend kernel must
+    have launched there, ``index.tsv`` must list the corpus in frame order,
+    and every fbank must equal the plain version of the frontend, computed
+    here on the same samples, by K11's tolerance rule.  The corpus is pure
+    tones with no noise floor: a band 30-60 dB under its frame's peak is a
+    difference of large float32 products, so here the log domain holds the
+    energies within TONE_FLOOR_DB of the peak and the linear domain the
+    rest.  Returns (index path, the subprocess's K11 launches)."""
+    import re
+
+    import numpy as np
+
+    from ss_asr_tpu_torch.data.audio import load_wav
+    from ss_asr_tpu_torch.data.index import load_index
+    from ss_asr_tpu_torch.ops import frontend as fe
+    from ss_asr_tpu_torch.ops.kernels import frontend as kfe
+
+    root = os.path.join(tmp, "corpus")
+    env = {**os.environ, "PYTHONPATH": HERE}
+
+    def run(*argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *argv], cwd=HERE, env=env,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"{argv[0]} exited {proc.returncode}: {proc.stderr[-3000:]}")
+        return time.perf_counter() - t0, proc.stdout
+
+    run("ss_asr_tpu_torch.cli.mkdata", root, "--n", str(PRE_UTTS), "--seed", str(SEED))
+    secs, out = run("ss_asr_tpu_torch.cli.preprocess", "generic", os.path.join(root, "processed"),
+                    os.path.join(root, "wav"), os.path.join(root, "txt"), "--sr", str(PRE_SR),
+                    "--device", DEVICE)
+    m = re.search(r"(\d+) kernel launches", out)
+    launched = int(m.group(1)) if m else 0
+    idx = os.path.join(root, "processed", "index.tsv")
+    rows = load_index(idx)
+    frames = [r["unpadded_num_frames"] for r in rows]
+    if not (len(rows) == PRE_UTTS and frames == sorted(frames) and launched >= 1
+            and {os.path.basename(r["wav_fname"]) for r in rows}
+            == set(os.listdir(os.path.join(root, "wav")))):
+        fail(f"cli.preprocess: {len(rows)} index rows for {PRE_UTTS} utterances, frame counts "
+             f"sorted {frames == sorted(frames)}, K11 launches {launched}")
+    n_fft, hop = fe.frame_params(PRE_SR)
+    wbasis, mel, _ = fe._projections(PRE_SR, fe.N_DIMS, fe.WIN_MS, fe.STRIDE_MS,
+                                     torch.device(DEVICE))
+    worst = (0.0, 0.0, 0.0)
+    for r in rows:
+        y = torch.from_numpy(load_wav(r["wav_fname"], target_sr=PRE_SR)[1]).to(DEVICE)[None]
+        nf = int(fe.num_frames(y.shape[1], n_fft, hop))
+        want = kfe.fbank_plain(fe.reflect_padded(y, None, n_fft // 2), wbasis, mel, nf, n_fft,
+                               hop)[0]
+        got = torch.from_numpy(np.load(r["path_to_fbank"])).to(DEVICE)
+        if got.shape != want.shape or got.shape[0] != r["unpadded_num_frames"]:
+            fail(f"cli.preprocess: {r['path_to_fbank']} has shape {tuple(got.shape)}, the plain "
+                 f"frontend gives {tuple(want.shape)}, the index says {r['unpadded_num_frames']}")
+        errs = (*fbank_errors(torch, got, want, TONE_FLOOR_DB),
+                fbank_errors(torch, got, want)[0])
+        worst = tuple(max(a, b) for a, b in zip(worst, errs))
+    print(f"cli.preprocess generic: {PRE_UTTS} utterances at sr {PRE_SR} in {secs:.1f} s "
+          f"(process included), {PRE_UTTS / secs:.2f} utt/s; K11 launches {launched}; every fbank "
+          f"against the plain frontend: log max_abs_err {worst[0]:.3e} within "
+          f"{TONE_FLOOR_DB:.0f} dB of the frame's peak ({worst[2]:.3e} within "
+          f"{FBANK_FLOOR_DB:.0f} dB, not held: pure tones), linear err {worst[1]:.3e}",
+          flush=True)
+    if not (worst[0] <= FBANK_LOG_TOL and worst[1] <= FBANK_LIN_TOL):
+        fail(f"cli.preprocess: fbanks differ from the plain frontend by {worst[:2]}")
+    return idx, launched
+
+
+def aux_trainer(cls, config, tmp, name, trees, device):
+    """A TAE / SAE / ADV trainer on ``device`` whose checkpoint directory
+    starts at ``trees`` ({file stem: tree})."""
+    from ss_asr_tpu_torch.train.solver import make_paras
+    from ss_asr_tpu_torch.utils.checkpoint import save_pytree
+
+    paras = make_paras(name=name, logdir=os.path.join(tmp, "runs"),
+                       ckpdir=os.path.join(tmp, "result"), seed=SEED, verbose=False)
+    for stem, tree in trees.items():
+        save_pytree(os.path.join(tmp, "result", name, f"{stem}.npz"), tree)
+    t = cls(config, paras, device=device)
+    t.set_model()
+    return t
+
+
+def anchored_losses(torch, tag, trainers, run, pooled=()):
+    """One loss and its gradients on the card, on the CPU (plain versions)
+    and in float64 on the CPU, from ``run(trainer, device) -> loss``: the
+    card's relative L2 error against float64 of the loss and of every
+    gradient at most ANCHOR_RATIO times the CPU float32 run's own, or below
+    STEP_FLOOR; the same parameters carry a gradient in all three.
+
+    ``pooled``: name prefixes of the parameters whose gradient passes
+    through max-pools.  A max-pool's winner is a discrete choice: where two
+    candidates of a window lie within float32 rounding of each other, the
+    card, the CPU and float64 may each route that window's whole gradient
+    to another position, and behind a global pool few routes carry the
+    gradient (measured: one flipped window of 338,000 moves these gradients
+    by 3e-4 to 4e-3, on the card in one run and on the CPU in another).
+    Such a gradient may miss the anchored bound if it stays within
+    POOL_TOL; the print counts those."""
+    from ss_asr_tpu_torch.train.solver import joint_named_parameters
+
+    res = []
+    for t, dev in zip(trainers, (DEVICE, "cpu", "cpu")):
+        for m in t.models.values():
+            m.zero_grad(set_to_none=True)
+        loss = run(t, dev)
+        loss.backward()
+        res.append((loss.detach().cpu(), {n: p.grad.cpu() for n, p in
+                                          joint_named_parameters(t.models) if p.grad is not None}))
+    (loss, grads), (loss_c, grads_c), (loss_r, grads_r) = res
+    if not (set(grads) == set(grads_c) == set(grads_r)) or any(
+            float(g.abs().sum()) == 0.0 for g in grads.values()):
+        fail(f"{tag}: the card's gradients {sorted(grads)} are not the CPU's {sorted(grads_c)}, "
+             "or one is zero")
+    worst, bad, flipped = (0.0, 0.0, ""), [], []
+    for name, got, plain, r in [("loss", loss, loss_c, loss_r)] + [
+            (n, grads[n], grads_c[n], grads_r[n]) for n in sorted(grads)]:
+        k, c = rel_l2(torch, got, r), rel_l2(torch, plain, r)
+        worst = max(worst, (k, c, name))
+        if k <= max(ANCHOR_RATIO * c, STEP_FLOOR):
+            continue
+        if name.startswith(tuple(pooled)) and pooled and k <= POOL_TOL:
+            flipped.append(name)
+        else:
+            bad.append(f"{name} (card {k:.3e}, CPU {c:.3e})")
+    print(f"{tag}: loss card {float(loss):.6f} CPU {float(loss_c):.6f} float64 "
+          f"{float(loss_r):.6f}; the loss and {len(grads)} gradients against float64: worst card "
+          f"rel L2 {worst[0]:.3e} (CPU float32 {worst[1]:.3e}, {worst[2]})"
+          + (f"; {len(flipped)} gradients behind max-pools above the anchored bound and within "
+             f"{POOL_TOL}: {flipped}" if flipped else ""), flush=True)
+    if bad:
+        fail(f"{tag}: card error against float64 above {ANCHOR_RATIO} x the CPU float32's and "
+             f"{STEP_FLOOR}: {bad}")
+
+
+def timed_steps(torch, tag, trainer, optims, step, batch, need):
+    """AUX_STEPS updates of ``trainer`` on the card, timed with CUDA events,
+    the launch counters zeroed just before and read just after: every
+    kernel of ``need`` must launch, every parameter outside the optimizers'
+    masks must stay bit-unchanged and every one inside must move.  Then a
+    torch.profiler split of 2 more updates."""
+    from ss_asr_tpu_torch.train.solver import joint_named_parameters
+
+    step()  # warm-up
+    before = {n: p.detach().clone() for n, p in joint_named_parameters(trainer.models)}
+    zero_launches()
+    times = []
+    for _ in range(AUX_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    launches = read_launches()
+    ms = statistics.median(times)
+    trained = set().union(*(o.mask for o in optims))
+    after = dict(joint_named_parameters(trainer.models))
+    moved = {n for n in before if not torch.equal(before[n], after[n])}
+    print(f"{tag} B={batch}: median of {AUX_STEPS} {ms:.3f} ms, {batch / ms * 1e3:.1f} utt/s (min "
+          f"{min(times):.3f}, max {max(times):.3f}); {len(moved)} of {len(before)} parameters moved, "
+          f"the other {len(before) - len(moved)} bit-unchanged; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if moved != trained:
+        fail(f"{tag}: moved {sorted(moved ^ trained)} against the optimizer masks")
+    for name in need:
+        if launches[name] < 1:
+            fail(f"{tag}: launched {name} {launches[name]} times")
+    profile_steps(torch, step, 2)
+    return launches
+
+
+def text_batch(torch, rng, batch, drop_rate):
+    """Seeded target ids [batch, TRAIN_L] (SOS, 12 to TRAIN_L - 2 characters,
+    EOS, SOS padding), a noised copy (each character dropped with
+    ``drop_rate``) and the dataset's lengths of both (non-pad count + 1)."""
+    import numpy as np
+
+    from ss_asr_tpu_torch.vocab import EOS_ID, VOCAB_SIZE
+
+    y = np.zeros((batch, TRAIN_L), np.int64)
+    yn = np.zeros((batch, TRAIN_L), np.int64)
+    for i, k in enumerate(rng.integers(TRAIN_L // 4, TRAIN_L - 1, size=batch)):
+        ids = rng.integers(3, VOCAB_SIZE, size=k)
+        kept = ids[rng.random(k) > drop_rate]
+        y[i, 1 : k + 1], y[i, k + 1] = ids, EOS_ID
+        yn[i, 1 : len(kept) + 1], yn[i, len(kept) + 1] = kept, EOS_ID
+    return tuple(torch.from_numpy(a) for a in
+                 (y, (y != 0).sum(-1) + 1, yn, (yn != 0).sum(-1) + 1))
+
+
+def check_aux_trainers(torch, rng, config, asr_tree, tmp):
+    """The TAE, SAE and ADV train steps at the full width of
+    conf/default.yaml (TAE B = 64; SAE and ADV B = 32, T = 512 frames): each
+    loss and every gradient on the card against the CPU's plain versions by
+    the float64-anchored rule, then timed updates with their kernel launches
+    and the frozen subtrees checked.  Returns {path: launches}."""
+    from ss_asr_tpu_torch import convert
+    from ss_asr_tpu_torch.models import discriminator as disc_mod
+    from ss_asr_tpu_torch.models import las
+    from ss_asr_tpu_torch.models import speech_autoencoder as sae_mod
+    from ss_asr_tpu_torch.models import text_autoencoder as tae_mod
+    from ss_asr_tpu_torch.ops.frontend import log_mel_fbank_batch
+    from ss_asr_tpu_torch.train.adv_trainer import ADVTrainer
+    from ss_asr_tpu_torch.train.sae_trainer import SAETrainer
+    from ss_asr_tpu_torch.train.tae_trainer import TAETrainer
+
+    asr_cfg = las.ASRConfig.from_dict(config["asr"]["mdl"])
+    tae_tree = convert.init_tae_numpy(SEED + 3, tae_mod.TAEConfig.from_dict(config["tae"]["mdl"]))
+    sae_cfg = sae_mod.SAEConfig.from_dict({**config["sae"]["mdl"],
+                                           "listener_out_dim": asr_cfg.enc_out_dim})
+    sae_params, sae_bn = convert.init_sae_numpy(SEED + 4, sae_cfg)
+    disc_tree = convert.init_disc_numpy(SEED + 5, disc_mod.DiscriminatorConfig.from_dict(
+        {**config["adv"]["mdl"], "in_dim": asr_cfg.enc_out_dim}))
+    wave, n, _ = train_batch(torch, rng)
+    with torch.no_grad():
+        x, x_lens = log_mel_fbank_batch(wave, n, SR)
+    launches = {}
+
+    def three(cls, name, trees):
+        ts = [aux_trainer(cls, config, tmp, f"{name}_{tag}", trees, dev)
+              for tag, dev in (("card", DEVICE), ("cpu", "cpu"), ("f64", "cpu"))]
+        for m in ts[2].models.values():
+            m.double()
+        return ts
+
+    # TAE: the text encoder (K2 / K3) and the ASR's speller over its memory (K9 / K10)
+    tae_b = config["tae"]["train_batch_size"]
+    y, _, yn, nl = text_batch(torch, rng, tae_b, config["tae"]["drop_rate"])
+    ts = three(TAETrainer, "tae", {"asr": asr_tree, "tae": tae_tree})
+    anchored_losses(torch, f"TAE step B={tae_b} L={TRAIN_L} S={yn.shape[1]}", ts,
+                    lambda t, dev: t.loss_of(y.to(dev), yn.to(dev), nl.to(dev))[0])
+    card = ts[0]
+    args = (y.to(DEVICE), yn.to(DEVICE), nl.to(DEVICE))
+    launches["tae step"] = timed_steps(
+        torch, "TAE step (forward + backward + clip + Adam)", card, [card.optim],
+        lambda: card.step(*args), tae_b, ("lstm_fwd", "lstm_bwd", "spell_fwd", "spell_bwd"))
+
+    # SAE: the listener (K2 / K3), the conv encoder and the MLP decoder
+    ts = three(SAETrainer, "sae", {"asr": asr_tree, "sae": {"params": sae_params,
+                                                            "bn_state": sae_bn}})
+    anchored_losses(torch, f"SAE step B={TRAIN_B} T={x.shape[1]}", ts,
+                    lambda t, dev: t.recon_loss(
+                        x.to(dev).to(next(t.models["sae"].parameters()).dtype), x_lens.to(dev),
+                        True)[0], pooled=("sae.encoder.",))
+    card = ts[0]
+    launches["sae step"] = timed_steps(
+        torch, "SAE step (forward + backward + clip + Adam)", card, [card.optim],
+        lambda: card.step(x, x_lens), TRAIN_B, ("lstm_fwd", "lstm_bwd"))
+
+    # ADV: the D-step, then the G-step, two optimizers over one parameter set
+    y, y_lens, _, _ = text_batch(torch, rng, TRAIN_B, 0.0)
+    ts = three(ADVTrainer, "adv", {"asr": asr_tree, "tae": tae_tree, "adv": disc_tree})
+
+    def cast(t, dev):
+        return x.to(dev).to(next(t.models["disc"].parameters()).dtype)
+
+    anchored_losses(torch, f"ADV D-step B={TRAIN_B} T={x.shape[1]} S={y.shape[1]}", ts,
+                    lambda t, dev: sum(t.d_losses(cast(t, dev), x_lens.to(dev), y.to(dev),
+                                                  y_lens.to(dev), t.label_smoothing)[:2]))
+    anchored_losses(torch, f"ADV G-step B={TRAIN_B} T={x.shape[1]}", ts,
+                    lambda t, dev: t.g_loss(cast(t, dev), x_lens.to(dev)))
+    card = ts[0]
+    yd, yld = y.to(DEVICE), y_lens.to(DEVICE)
+
+    def d_and_g():
+        card.d_step(x, x_lens, yd, yld)
+        card.g_step(x, x_lens)
+
+    launches["adv steps"] = timed_steps(
+        torch, "ADV D-step + G-step (each forward + backward + clip + Adadelta)", card,
+        [card.D_optim, card.G_optim], d_and_g, TRAIN_B, ("lstm_fwd", "lstm_bwd"))
+    return launches
+
+
+def check_cli_seed(config, idx, tmp):
+    """``cli.train Seed`` as a subprocess on the preprocessed corpus, one
+    super-iteration of TAE -> ADV -> SAE at the full width: the stages'
+    files and the three ASR relays written, every logged loss finite; then
+    ``cli.train ASRTrainer`` from the last relay for a few epochs, whose
+    last epoch's mean loss must be below its first's (the same batches)."""
+    import numpy as np
+    import yaml
+
+    c = copy.deepcopy(config)
+    for key, epochs in (("tae", SEED_EPOCHS["tae"]), ("adv", SEED_EPOCHS["adv"]),
+                        ("sae", SEED_EPOCHS["sae"]), ("asr", SEED_EPOCHS["asr"])):
+        c[key].update(train_index=idx, valid_index=idx, n_epochs=epochs, logging_step=1,
+                      save_step=1000, valid_step=4)
+    c["adv"]["eval_index"] = idx
+    c["asr"].update(train_batch_size=TRAIN_B, valid_batch_size=TRAIN_B, wer_step=1000)
+    c["seed_train"] = {"super_its": 1}
+    path = os.path.join(tmp, "seed.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(c, f)
+    ck = os.path.join(tmp, "seed_result", "seed")
+
+    def run(kind):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ss_asr_tpu_torch.cli.train", kind, "seed", path,
+             os.path.join(tmp, "seed_runs"), os.path.join(tmp, "seed_result"), "--seed", str(SEED),
+             "--verbose", "1", "--device", DEVICE],
+            cwd=HERE, env={**os.environ, "PYTHONPATH": HERE}, capture_output=True, text=True,
+            timeout=900)
+        if proc.returncode != 0:
+            fail(f"cli.train {kind} exited {proc.returncode}: {proc.stderr[-3000:]}")
+        return time.perf_counter() - t0, proc.stdout
+
+    def scalars(module, key):
+        with open(os.path.join(tmp, "seed_runs", "seed", module, "metrics.jsonl")) as f:
+            return [r["value"] for r in map(json.loads, f) if r["key"] == f"{module}_{key}"]
+
+    secs, _ = run("Seed")
+    files = ("asr_1.npz", "asr_2.npz", "asr_3.npz", "tae.npz", "tae_opt.npz", "adv.npz",
+             "adv_G_opt.npz", "adv_D_opt.npz", "sae.npz", "sae_opt.npz", "tracker.json")
+    missing = [name for name in files if not os.path.isfile(os.path.join(ck, name))]
+    tae, sae = scalars("tae", "train_loss"), scalars("sae", "train_loss")
+    gen = scalars("adv", "gen_loss_train")
+    print(f"cli.train Seed (TAE {SEED_EPOCHS['tae']}, ADV {SEED_EPOCHS['adv']}, SAE "
+          f"{SEED_EPOCHS['sae']} epochs on {PRE_UTTS} utterances) in {secs:.1f} s (process "
+          f"included): TAE loss {tae[0]:.4f} -> {tae[-1]:.4f} over {len(tae)} steps, ADV generator "
+          f"loss {gen[0]:.4f} -> {gen[-1]:.4f} over {len(gen)}, SAE loss {sae[0]:.4f} -> "
+          f"{sae[-1]:.4f} over {len(sae)}; relays asr_1, asr_2, asr_3 written", flush=True)
+    if missing or not all(len(v) > 0 and np.isfinite(v).all() for v in (tae, sae, gen)):
+        fail(f"cli.train Seed: missing {missing}, or a stage logged no loss or a non-finite one")
+    shutil.copyfile(os.path.join(ck, "asr_3.npz"), os.path.join(ck, "asr.npz"))
+    secs, out = run("ASRTrainer")
+    asr = scalars("asr", "train_loss")
+    with open(os.path.join(ck, "tracker.json")) as f:
+        step = json.load(f)["asr"]["step"]
+    per = max(len(asr) // SEED_EPOCHS["asr"], 1)  # steps of one epoch
+    first, last = float(np.mean(asr[:per])), float(np.mean(asr[-per:]))
+    print(f"cli.train ASRTrainer from the last relay: {len(asr)} steps of B={TRAIN_B} in "
+          f"{secs:.1f} s, loss {asr[0]:.4f} -> {asr[-1]:.4f} (first epoch's mean {first:.4f}, "
+          f"last epoch's {last:.4f}); tracker step {step}", flush=True)
+    if not (f"Loading a pretrained model from {os.path.join(ck, 'asr.npz')}" in out
+            and step == len(asr) >= 4 and np.isfinite(asr).all() and last < first):
+        fail(f"cli.train ASRTrainer did not start from the relay, or its loss did not fall: "
+             f"{asr}, tracker step {step}")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "ss_asr_tpu_torch")):
         fail(f"ss_asr_tpu_torch not found beside {os.path.basename(__file__)}: run from a checkout")
@@ -1205,6 +1774,7 @@ def main() -> None:
 
     sigs = synthetic_signals(rng)
     long_sig, stream_sig = long_signal(rng, LONG_SECONDS), long_signal(rng, 8.0)
+    results.update(check_fbank(torch, rng, sigs, stream_sig))
     new_asr_tree = convert.init_asr_numpy(SEED + 2, cfg)
     with tempfile.TemporaryDirectory() as tmp:
         paths = {name: os.path.join(tmp, f"{name}.npz") for name in ("asr", "lm", "new_asr")}
@@ -1220,25 +1790,31 @@ def main() -> None:
 
         # phase 4: greedy serving, without and with the LM
         launches = serve_phase(torch, "serve", transcriber(beam_size=1), sigs,
-                               ("lstm_fwd", "greedy_decode"))
+                               ("fbank", "lstm_fwd", "greedy_decode"))
         launches.update(serve_phase(torch, "serve+lm",
                                     transcriber(paths["lm"], beam_size=1, lm_weight=0.5), sigs,
-                                    ("lstm_fwd", "greedy_decode_lm")))
+                                    ("fbank", "lstm_fwd", "greedy_decode_lm")))
         # phase 5: serving under the default config's decode settings
         beam = transcriber(config=config)
         default = transcriber(paths["lm"], config=config)
         if (beam.beam_size, default.beam_size, default.lm_weight) != (3, 3, 0.5):
             fail(f"conf/default.yaml gave beam {beam.beam_size} / {default.beam_size}, "
                  f"LM weight {default.lm_weight}")
-        launches.update(serve_phase(torch, "serve beam3", beam, sigs, ("lstm_fwd", "beam_decode")))
+        launches.update(serve_phase(torch, "serve beam3", beam, sigs,
+                                    ("fbank", "lstm_fwd", "beam_decode")))
         routes = default_routes(torch, default, config, paths, sigs[1], long_sig, stream_sig,
                                 new_asr_tree)
         launches.update(serve_phase(
-            torch, "serve default", default, sigs, ("lstm_fwd", "beam_decode_lm"),
+            torch, "serve default", default, sigs, ("fbank", "lstm_fwd", "beam_decode_lm"),
             reload_paths={"asr": paths["asr"], "lm": paths["lm"]}, routes=routes))
         # phase 6: the train step, then the training CLI
         launches["train"] = check_train_step(torch, rng, config, asr_tree, tmp)
         check_cli_train(rng, config, tmp)
+        # phase 8: data preparation, the auxiliary trainers, the Seed chain
+        idx, n = check_preprocess(torch, tmp)
+        launches["preprocess"] = {**{k: 0 for k in read_launches()}, "fbank": n}
+        launches.update(check_aux_trainers(torch, rng, config, asr_tree, tmp))
+        check_cli_seed(config, idx, tmp)
     # each kernel's launches on the serving and training paths, every path counted on its own
     counts = {name: sum(ls[name] for ls in launches.values()) for name in results}
 
@@ -1249,13 +1825,15 @@ def main() -> None:
                 "beam_decode_lm": ("beam_decode.cu", "ss_asr_tpu/ops/pallas/beam.py:74"),
                 "spell_fwd": ("spell_fwd.cu", "ss_asr_tpu/ops/pallas/spell.py:115"),
                 "lstm_bwd": ("lstm_bwd.cu", "ss_asr_tpu/ops/pallas/lstm.py:217"),
-                "spell_bwd": ("spell_bwd.cu", "ss_asr_tpu/ops/pallas/spell.py:208")}
+                "spell_bwd": ("spell_bwd.cu", "ss_asr_tpu/ops/pallas/spell.py:208"),
+                "fbank": ("frontend.cu", "ss_asr_tpu/ops/pallas/frontend.py:83")}
     # K3's launch of both directions also computes the fused BiLSTM backward
     covers = {"lstm_bwd": "ss_asr_tpu/ops/pallas/bilstm.py:75"}
     kernels = [{"name": name, "route": "cuda", "source": f"ss_asr_tpu_torch/csrc/{src}",
                 "replaces": rep, "launches": counts[name],
                 "max_abs_err": results[name]["max_abs_err"], "ms": results[name]["ms"],
-                "plain_ms": results[name]["plain_ms"],
+                "plain_ms": results[name]["plain_ms"], "bound_ms": results[name]["bound_ms"],
+                "bound_by": results[name]["bound_by"], "library_ms": results[name]["library_ms"],
                 **({"also_replaces": covers[name]} if name in covers else {})}
                for name, (src, rep) in replaces.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

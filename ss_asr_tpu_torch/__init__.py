@@ -12,12 +12,15 @@ streaming), the pyramidal BiLSTM listener, greedy and beam decoding with
 optional char-LM shallow fusion, n-best hypotheses with confidence and
 timestamps from a forced-alignment pass, LM rescoring, long-form and
 streaming decodes, the ``Transcriber`` API, the dynamic batcher and the
-HTTP server with hot reload; and the supervised train step with
-``ASRTrainer`` (``cli.train``).  Its sequential hot loops run as CUDA C++
-kernels written for ``sm_90a`` (``csrc/``): the LSTM time loop forward and
-backward, the whole greedy decode and the whole beam frontier (each with
-and without the LM), and the attend-and-spell forward and backward.  The
-auxiliary trainers are not ported yet.
+HTTP server with hot reload; the supervised train step with ``ASRTrainer``;
+data preparation (``cli.mkdata``, ``cli.preprocess``); and the
+semi-supervised trainers (text autoencoder, speech autoencoder, adversarial
+listener) with the ``Seed`` chain that runs them (``cli.train``).  Its hot
+loops run as CUDA C++ kernels written for ``sm_90a`` (``csrc/``): the LSTM
+time loop forward and backward, the whole greedy decode and the whole beam
+frontier (each with and without the LM), the attend-and-spell forward and
+backward, and the fused log-mel frontend.  The char-LM trainer, ``ASRTester``
+and the pseudo-labelling, averaging and import CLIs are not ported yet.
 
 Routing is by device alone: a CUDA tensor goes to the kernel, a CPU tensor
 to the kernel's plain PyTorch version beside it.  There is no switch.

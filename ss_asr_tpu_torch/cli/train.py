@@ -1,13 +1,15 @@
 """Training CLI, on a GPU.
 
-    python -m ss_asr_tpu_torch.cli.train ASRTrainer <name> <config> [logdir] [ckpdir] \
+    python -m ss_asr_tpu_torch.cli.train <type> <name> <config> [logdir] [ckpdir] \
         [--seed N] [--verbose B] [--device cuda]
 
 Port of ``ss_asr_tpu/cli/train.py``: the same positional arguments and
 options, plus ``--device`` (default ``cuda``; a missing GPU is an error).
 Checkpoints land in ``<ckpdir>/<name>/`` in the JAX package's layout, so
-either package resumes from the other's.  ``ASRTrainer`` is ported; the
-other trainer types of the JAX CLI raise ``NotImplementedError``.
+either package resumes from the other's.  ``type`` is ``ASRTrainer``,
+``TAETrainer``, ``SAETrainer``, ``AdvTrainer`` / ``ADVTrainer`` or ``Seed``
+(the TAE / ADV / SAE chain over the ASR relay files); the char-LM trainer
+and ``ASRTester`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,7 +21,11 @@ import numpy as np
 
 TYPES = ["ASRTrainer", "ASRTester", "LMTrainer", "CHARLMTrainer",
          "TAETrainer", "SAETrainer", "AdvTrainer", "ADVTrainer", "Seed"]
-AUX_TODO = "ROADMAP.md port item 7 (aux models and trainers)"
+UNPORTED = {
+    "LMTrainer": "ROADMAP.md port item 7 (the char-LM trainer)",
+    "CHARLMTrainer": "ROADMAP.md port item 7 (the char-LM trainer)",
+    "ASRTester": "ROADMAP.md port item 7 (ASRTester)",
+}
 
 
 def _parse_bool(s: str) -> bool:
@@ -44,8 +50,8 @@ def main(argv=None):
 
     if paras.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit(f"--device {paras.device}: CUDA is not available")
-    if paras.type != "ASRTrainer":
-        raise NotImplementedError(f"{paras.type} is not ported yet, see {AUX_TODO}")
+    if paras.type in UNPORTED:
+        raise NotImplementedError(f"{paras.type} is not ported yet, see {UNPORTED[paras.type]}")
 
     import yaml
 
@@ -54,9 +60,19 @@ def main(argv=None):
     random.seed(paras.seed)
     np.random.seed(paras.seed)
 
-    from ss_asr_tpu_torch.train.asr_trainer import ASRTrainer
+    if paras.type == "Seed":
+        from ss_asr_tpu_torch.train.seed import asr_seed_train
 
-    solver = ASRTrainer(config, paras, device=paras.device)
+        asr_seed_train(config, paras, device=paras.device)
+        return
+    from ss_asr_tpu_torch.train.adv_trainer import ADVTrainer
+    from ss_asr_tpu_torch.train.asr_trainer import ASRTrainer
+    from ss_asr_tpu_torch.train.sae_trainer import SAETrainer
+    from ss_asr_tpu_torch.train.tae_trainer import TAETrainer
+
+    trainers = {"ASRTrainer": ASRTrainer, "TAETrainer": TAETrainer, "SAETrainer": SAETrainer,
+                "AdvTrainer": ADVTrainer, "ADVTrainer": ADVTrainer}
+    solver = trainers[paras.type](config, paras, device=paras.device)
     solver.load_data()
     solver.set_model()
     solver.exec()

@@ -8,7 +8,15 @@
   ``weight [out, in]``; the merged LSTM bias ``b`` becomes ``bias_ih`` plus
   a zero ``bias_hh``; GRU cells keep both biases.  ``asr_params_from_state``
   is the inverse (the trainer's checkpoints).
-* ``init_asr_numpy`` / ``init_charlm_numpy``: seeded numpy draws with the
+* ``tae_*``, ``sae_*`` (with the batch-norm state, and the conv kernels
+  HWIO <-> OIHW) and ``disc_*``: the same pairs for the text autoencoder,
+  the speech autoencoder and the discriminator; their ``state_dict`` keys are
+  those of ``export_tae`` / ``export_sae`` / ``export_discriminator`` there.
+* ``opt_state_leaves`` / ``load_opt_state_leaves``: an optimizer over several
+  models' parameters (named ``<model>.<state_dict key>``), masked to some
+  subtrees, as the leaves of the JAX package's optax state.
+* ``init_asr_numpy`` / ``init_charlm_numpy`` / ``init_tae_numpy`` /
+  ``init_sae_numpy`` / ``init_disc_numpy``: seeded numpy draws with the
   shapes and distributions of the JAX initializers (``ops/rnn.py``
   ``lecun_normal`` / ``init_lstm`` / ``init_gru`` / ``init_embedding``,
   ``models/las.py`` ``init_asr``, ``models/charlm.py`` ``init_charlm``):
@@ -21,13 +29,16 @@
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ss_asr_tpu_torch.models.charlm import CharLMConfig
+from ss_asr_tpu_torch.models.discriminator import DiscriminatorConfig
 from ss_asr_tpu_torch.models.las import ASRConfig
+from ss_asr_tpu_torch.models.speech_autoencoder import SAEConfig
+from ss_asr_tpu_torch.models.text_autoencoder import TAEConfig
 
 Tree = Dict
 
@@ -117,6 +128,90 @@ def asr_params_from_state(sd: Dict[str, torch.Tensor]) -> Tree:
     }
 
 
+def tae_state_from_params(tree: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``models.text_autoencoder`` tree -> ``TextAutoencoder.state_dict()``."""
+    enc = tree["encoder"]
+    out: Dict[str, torch.Tensor] = {"encoder.emb.weight": _f(enc["emb"]["table"])}
+    for i in range(len(enc) - 1):
+        _lstm_to(enc[f"bilstm{i + 1}"]["fwd"], "encoder.blstm", f"_l{i}", out)
+        _lstm_to(enc[f"bilstm{i + 1}"]["bwd"], "encoder.blstm", f"_l{i}_reverse", out)
+    return out
+
+
+def tae_params_from_state(sd: Dict[str, torch.Tensor]) -> Tree:
+    """The inverse of ``tae_state_from_params`` (``b = bias_ih + bias_hh``)."""
+    n = sum(k.startswith("encoder.blstm.weight_ih_l") and not k.endswith("_reverse") for k in sd)
+    enc: Tree = {"emb": {"table": _n(sd["encoder.emb.weight"])}}
+    for i in range(n):
+        enc[f"bilstm{i + 1}"] = {"fwd": _lstm_from(sd, "encoder.blstm", f"_l{i}"),
+                                 "bwd": _lstm_from(sd, "encoder.blstm", f"_l{i}_reverse")}
+    return {"encoder": enc}
+
+
+_MLP = (("fc1", "0"), ("fc2", "2"), ("fc3", "4"))  # JAX key, index in the reference's Sequential
+
+
+def sae_state_from_params(params: Tree, bn_state: Optional[Tree] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """JAX ``models.speech_autoencoder`` (params, bn_state) ->
+    ``SpeechAutoencoder.state_dict()``; conv kernels HWIO -> OIHW.  Without
+    ``bn_state`` the running statistics are left out (load with
+    ``strict=False``)."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, conv in params["encoder"].items():
+        pre = f"encoder.conv_{name[len('conv'):]}"
+        out[f"{pre}.0.weight"] = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(conv["w"], np.float32).transpose(3, 2, 0, 1)))
+        out[f"{pre}.1.weight"] = _f(conv["bn_scale"])
+        out[f"{pre}.1.bias"] = _f(conv["bn_bias"])
+        if bn_state is not None:
+            out[f"{pre}.1.running_mean"] = _f(bn_state[name]["mean"])
+            out[f"{pre}.1.running_var"] = _f(bn_state[name]["var"])
+    for ours, theirs in _MLP:
+        _linear_to(params["decoder"][ours], f"decoder.core.{theirs}", out)
+    return out
+
+
+def sae_params_from_state(sd: Dict[str, torch.Tensor]) -> Tuple[Tree, Tree]:
+    """``SpeechAutoencoder.state_dict()`` -> the JAX (params, bn_state); conv
+    kernels OIHW -> HWIO.  ``bn_state`` holds the layers whose running
+    statistics ``sd`` has (none for a dict of gradients or accumulators)."""
+    params: Tree = {"encoder": {}, "decoder": {}}
+    bn_state: Tree = {}
+    n = sum(k.endswith(".0.weight") and k.startswith("encoder.conv_") for k in sd)
+    for i in range(1, n + 1):
+        pre = f"encoder.conv_{i}"
+        params["encoder"][f"conv{i}"] = {
+            "w": np.ascontiguousarray(_n(sd[f"{pre}.0.weight"]).transpose(2, 3, 1, 0)),
+            "bn_scale": _n(sd[f"{pre}.1.weight"]), "bn_bias": _n(sd[f"{pre}.1.bias"])}
+        if f"{pre}.1.running_mean" in sd:
+            bn_state[f"conv{i}"] = {"mean": _n(sd[f"{pre}.1.running_mean"]),
+                                    "var": _n(sd[f"{pre}.1.running_var"])}
+    for ours, theirs in _MLP:
+        params["decoder"][ours] = _linear_from(sd, f"decoder.core.{theirs}")
+    return params, bn_state
+
+
+def disc_state_from_params(tree: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``models.discriminator`` tree -> ``Discriminator.state_dict()``."""
+    out: Dict[str, torch.Tensor] = {}
+    for ours, theirs in _MLP:
+        _linear_to(tree[ours], f"core.{theirs}", out)
+    return out
+
+
+def disc_params_from_state(sd: Dict[str, torch.Tensor]) -> Tree:
+    return {ours: _linear_from(sd, f"core.{theirs}") for ours, theirs in _MLP}
+
+
+#: model key of a joint tree -> state_dict-like dict -> its JAX parameter tree
+PARAMS_FROM_STATE = {"asr": asr_params_from_state, "tae": tae_params_from_state,
+                     "sae": lambda sd: sae_params_from_state(sd)[0],
+                     "disc": disc_params_from_state}
+STATE_FROM_PARAMS = {"asr": asr_state_from_params, "tae": tae_state_from_params,
+                     "sae": sae_state_from_params, "disc": disc_state_from_params}
+
+
 def tree_leaves(tree: Tree) -> List[np.ndarray]:
     """The leaves of a nested dict in ``jax.tree.leaves`` order (sorted keys)."""
     if isinstance(tree, dict):
@@ -124,46 +219,57 @@ def tree_leaves(tree: Tree) -> List[np.ndarray]:
     return [tree]
 
 
-def _tree_from_leaves(like: Tree, leaves: List[np.ndarray]) -> Tree:
-    it = iter(leaves)
+def _masked_leaves(tree: Tree, prefixes: Optional[Sequence[Tuple[str, ...]]],
+                   path: Tuple[str, ...] = ()) -> List[np.ndarray]:
+    """``tree_leaves`` of the leaves whose key path starts with one of
+    ``prefixes`` (all of them when None): what ``optax.masked`` keeps."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _masked_leaves(tree[k], prefixes, path + (k,))]
+    keep = prefixes is None or any(path[: len(p)] == tuple(p) for p in prefixes)
+    return [tree] if keep else []
 
-    def build(node):
-        return {k: build(node[k]) for k in sorted(node)} if isinstance(node, dict) else next(it)
 
-    return build(like)
+def _joint_tree(models: Dict, acc: Dict[str, torch.Tensor], prefixed: bool) -> Tree:
+    """{model key: JAX tree} of per-name tensors ``acc``, named ``<model
+    key>.<state_dict key>`` (or the bare state_dict key when not
+    ``prefixed``); a parameter that ``acc`` lacks (the frozen ``bias_hh``, a
+    masked-out subtree) counts as zero."""
+    return {key: PARAMS_FROM_STATE[key](
+        {k: acc.get(f"{key}.{k}" if prefixed else k, torch.zeros_like(v))
+         for k, v in m.state_dict().items() if "running_" not in k})
+        for key, m in models.items()}
 
 
-def asr_opt_state_leaves(opt, model) -> List[np.ndarray]:
-    """An ASR optimizer's state as the leaves of the JAX package's optax
-    state, in ``jax.tree.leaves`` order (``checkpoint.save_opt_state``
-    writes them): ``notfinite_count``, ``last_finite``, ``total_notfinite``,
-    Adam's ``count``, then each accumulator (``e_g`` and ``e_x``; ``mu`` and
-    ``nu``) over the parameter tree, transposed like the weights.
-    ``opt.params`` must be named as ``model.state_dict()`` is; a name it
-    lacks (the frozen ``bias_hh``) counts as zero."""
-    leaves = [opt.notfinite_count, opt.last_finite, opt.total_notfinite]
-    leaves = [t.detach().cpu().numpy() for t in leaves]
+def opt_state_leaves(opt, models: Dict, prefixes: Optional[Sequence[Tuple[str, ...]]] = None,
+                     prefixed: bool = True) -> List[np.ndarray]:
+    """The state of an optimizer over the joint parameters of ``models``
+    ({"asr": LAS, "tae": ...}; ``opt.params`` named ``<model key>.<state_dict
+    key>``) as the leaves of the JAX package's optax state for the joint tree
+    (``checkpoint.save_opt_state`` writes them), masked to the key-path
+    ``prefixes`` (``optax.masked``: the frozen leaves hold no state): the
+    three NaN-skip counters, Adam's ``count``, then each accumulator over the
+    masked tree, transposed like the weights."""
+    leaves = [t.detach().cpu().numpy()
+              for t in (opt.notfinite_count, opt.last_finite, opt.total_notfinite)]
     if opt.opt_type == "adam":
         leaves.append(opt.count.detach().cpu().numpy())
-    sd = model.state_dict()
     for slot in opt.slots:
-        acc = {k: opt.state[slot].get(k, torch.zeros_like(v)) for k, v in sd.items()}
-        leaves += tree_leaves(asr_params_from_state(acc))
+        leaves += _masked_leaves(_joint_tree(models, opt.state[slot], prefixed), prefixes)
     return leaves
 
 
-def load_asr_opt_state_leaves(opt, model, leaves: List[np.ndarray]) -> bool:
-    """Set ``opt``'s state from ``asr_opt_state_leaves``-ordered leaves (a
-    JAX package ``asr_opt.npz`` or this package's).  A leaf count that does
-    not fit the optimizer (another optimizer type) leaves ``opt`` fresh and
-    returns False, as the JAX package does; a leaf of the wrong shape raises."""
-    sd = model.state_dict()
-    like = asr_params_from_state(sd)
-    n_tree = len(tree_leaves(like))
+def load_opt_state_leaves(opt, models: Dict, prefixes, leaves: List[np.ndarray],
+                          prefixed: bool = True) -> bool:
+    """Set ``opt``'s state from ``opt_state_leaves``-ordered leaves (either
+    package's file).  A leaf count that does not fit (another optimizer
+    type) leaves ``opt`` fresh and returns False, as the JAX package does; a
+    leaf of the wrong shape raises."""
+    zeros = _joint_tree(models, {}, prefixed)
+    like = _masked_leaves(zeros, prefixes)
     n_head = 4 if opt.opt_type == "adam" else 3
-    if len(leaves) != n_head + n_tree * len(opt.slots):
+    if len(leaves) != n_head + len(like) * len(opt.slots):
         return False
-    for got, want in zip(leaves[n_head:], tree_leaves(like) * len(opt.slots)):
+    for got, want in zip(leaves[n_head:], like * len(opt.slots)):
         if np.shape(got) != want.shape:
             raise ValueError(f"optimizer state leaf of shape {np.shape(got)}, the model has "
                              f"{want.shape}")
@@ -173,12 +279,32 @@ def load_asr_opt_state_leaves(opt, model, leaves: List[np.ndarray]) -> bool:
     opt.total_notfinite = torch.tensor(int(leaves[2]), dtype=torch.int32, device=dev)
     if opt.opt_type == "adam":
         opt.count = torch.tensor(int(leaves[3]), dtype=torch.int32, device=dev)
+
+    def fill(node, it, path=()):
+        if isinstance(node, dict):
+            return {k: fill(node[k], it, path + (k,)) for k in sorted(node)}
+        keep = prefixes is None or any(path[: len(p)] == tuple(p) for p in prefixes)
+        return np.asarray(next(it), np.float32) if keep else node
+
     for i, slot in enumerate(opt.slots):
-        part = leaves[n_head + i * n_tree: n_head + (i + 1) * n_tree]
-        acc = asr_state_from_params(_tree_from_leaves(like, part))
-        for k, t in opt.state[slot].items():
-            t.copy_(acc[k])
+        part = iter(leaves[n_head + i * len(like): n_head + (i + 1) * len(like)])
+        tree = fill(zeros, part)
+        for key in models:
+            for k, t in STATE_FROM_PARAMS[key](tree[key]).items():
+                name = f"{key}.{k}" if prefixed else k
+                if name in opt.state[slot]:
+                    opt.state[slot][name].copy_(t)
     return True
+
+
+def asr_opt_state_leaves(opt, model) -> List[np.ndarray]:
+    """``opt_state_leaves`` for the ASR trainer's optimizer, whose parameters
+    are named as ``model.state_dict()`` is."""
+    return opt_state_leaves(opt, {"asr": model}, None, prefixed=False)
+
+
+def load_asr_opt_state_leaves(opt, model, leaves: List[np.ndarray]) -> bool:
+    return load_opt_state_leaves(opt, {"asr": model}, None, leaves, prefixed=False)
 
 
 def charlm_state_from_params(tree: Tree) -> Dict[str, torch.Tensor]:
@@ -250,3 +376,45 @@ def init_charlm_numpy(seed: int, cfg: CharLMConfig) -> Tree:
         "gru2": _gru(rng, h, h),
         "out": _linear(rng, h, cfg.vocab_size),
     }
+
+
+def _bilstm(rng, in_dim: int, hidden: int) -> Tree:
+    return {"fwd": _lstm(rng, in_dim, hidden), "bwd": _lstm(rng, in_dim, hidden)}
+
+
+def init_tae_numpy(seed: int, cfg: TAEConfig) -> Tree:
+    rng = np.random.default_rng(seed)
+    enc: Tree = {"emb": {"table": rng.standard_normal((cfg.vocab_size, cfg.emb_dim))
+                         .astype(np.float32)}}
+    in_dim = cfg.emb_dim
+    for i in range(cfg.num_layers):
+        enc[f"bilstm{i + 1}"] = _bilstm(rng, in_dim, cfg.state_size)
+        in_dim = 2 * cfg.state_size
+    return {"encoder": enc}
+
+
+def init_sae_numpy(seed: int, cfg: SAEConfig) -> Tuple[Tree, Tree]:
+    """-> (params, bn_state), as ``models.speech_autoencoder.init_sae``."""
+    rng = np.random.default_rng(seed)
+    params: Tree = {"encoder": {}, "decoder": {}}
+    state: Tree = {}
+    in_ch = 1
+    for i, ((kh, kw), nf) in enumerate(zip(cfg.kernel_sizes, cfg.num_filters)):
+        w = rng.standard_normal((kh, kw, in_ch, nf)) / np.sqrt(in_ch * kh * kw)
+        params["encoder"][f"conv{i + 1}"] = {"w": w.astype(np.float32),
+                                             "bn_scale": np.ones((nf,), np.float32),
+                                             "bn_bias": np.zeros((nf,), np.float32)}
+        state[f"conv{i + 1}"] = {"mean": np.zeros((nf,), np.float32),
+                                 "var": np.ones((nf,), np.float32)}
+        in_ch = nf
+    d_in = cfg.enc_out_dim + cfg.listener_out_dim
+    params["decoder"] = {"fc1": _linear(rng, d_in, d_in), "fc2": _linear(rng, d_in, d_in),
+                         "fc3": _linear(rng, d_in, cfg.frames_per_step * cfg.feature_dim)}
+    return params, state
+
+
+def init_disc_numpy(seed: int, cfg: DiscriminatorConfig) -> Tree:
+    rng = np.random.default_rng(seed)
+    return {"fc1": _linear(rng, cfg.in_dim, cfg.hidden_dim),
+            "fc2": _linear(rng, cfg.hidden_dim, cfg.hidden_dim),
+            "fc3": _linear(rng, cfg.hidden_dim, 1)}

@@ -1,7 +1,11 @@
 """ASR dataset: index-driven batches with bucketed static shapes.
 
-Port of ``ss_asr_tpu/data/asr_dataset.py`` (the speech half: no text-only
-TAE mode, no multi-host shards, which wait for ROADMAP items 7 and 9).
+Port of ``ss_asr_tpu/data/asr_dataset.py`` (no multi-host shards, which
+wait for ROADMAP item 9).  ``text_only`` batches carry no fbanks but a
+noised copy of the text (the text autoencoder's input): each character but
+SOS and EOS is dropped with probability ``drop_rate``, drawn from
+``np.random.default_rng(seed)`` in the JAX package's order, so both
+packages see the same noised batch.
 Batches are consecutive runs of the index; text is encoded over the fixed
 vocabulary and padded with SOS (= id 0); each batch is padded to a frame
 and character length rounded up to ``t_bucket`` / ``l_bucket``; lengths
@@ -22,7 +26,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from ss_asr_tpu_torch.data.index import load_index
-from ss_asr_tpu_torch.vocab import SOS_ID, Mapper
+from ss_asr_tpu_torch.vocab import EOS_ID, SOS_ID, Mapper
 
 
 def round_up(x: int, m: int) -> int:
@@ -33,24 +37,29 @@ def round_up(x: int, m: int) -> int:
 class Batch:
     """One batch with static (bucketed) shapes."""
 
-    x: np.ndarray  # [B, T, feat] float32
-    x_lens: np.ndarray  # [B] int32
+    x: Optional[np.ndarray]  # [B, T, feat] float32, or None (text_only)
+    x_lens: Optional[np.ndarray]  # [B] int32
     y: np.ndarray  # [B, L] int32 (SOS-padded)
     y_lens: np.ndarray  # [B] int32 (sum(!=0) + 1 convention)
+    y_noised: Optional[np.ndarray] = None  # [B, Ln] int32 (text_only)
+    y_noised_lens: Optional[np.ndarray] = None
     valid: Optional[np.ndarray] = None  # [B] bool, False for repeat-padding
 
 
 class ASRDataset:
-    def __init__(self, tsv_file: str, batch_size: int = 32, t_bucket: int = 128,
-                 l_bucket: int = 16):
+    def __init__(self, tsv_file: str, batch_size: int = 32, text_only: bool = False,
+                 drop_rate: float = 0.0, t_bucket: int = 128, l_bucket: int = 16, seed: int = 0):
         self.rows: List[Dict] = load_index(tsv_file)
         self.batch_size = batch_size
+        self.text_only = text_only
+        self.drop_rate = drop_rate
+        self.rng = np.random.default_rng(seed)
         self.t_bucket = t_bucket
         self.l_bucket = l_bucket
         self.mapper = Mapper()
         self.num_samples = len(self.rows)
         self.feature_dim = (int(np.load(self.rows[0]["path_to_fbank"]).shape[1])
-                            if self.rows else 0)
+                            if self.rows and not text_only else 0)
 
     def __len__(self) -> int:
         """Number of full batches."""
@@ -62,8 +71,18 @@ class ASRDataset:
             return self.num_samples // self.batch_size
         return (self.num_samples + self.batch_size - 1) // self.batch_size
 
-    def _encode_rows(self, rows: List[Dict]) -> np.ndarray:
+    def _drop_chars(self, ids: np.ndarray) -> np.ndarray:
+        """Char-drop noise; SOS and EOS are always kept."""
+        if self.drop_rate <= 0:
+            return ids
+        keep = (ids == SOS_ID) | (ids == EOS_ID) | (
+            self.rng.random(ids.shape[0]) > self.drop_rate)
+        return ids[keep]
+
+    def _encode_rows(self, rows: List[Dict], noised: bool = False) -> np.ndarray:
         enc = [self.mapper.encode(r["normalized_text"]) for r in rows]
+        if noised:
+            enc = [self._drop_chars(e) for e in enc]
         L = round_up(max(e.shape[0] for e in enc), self.l_bucket)
         out = np.full((len(enc), L), SOS_ID, dtype=np.int32)
         for i, e in enumerate(enc):
@@ -90,6 +109,13 @@ class ASRDataset:
             rows = rows + [self.rows[stop - 1]] * (self.batch_size - len(rows))
         y = self._encode_rows(rows)
         y_lens = ((y != 0).sum(axis=-1) + 1).astype(np.int32)
+        if self.text_only:
+            if self.drop_rate > 0:
+                yn = self._encode_rows(rows, noised=True)
+                yn_lens = ((yn != 0).sum(axis=-1) + 1).astype(np.int32)
+                return Batch(None, None, y, y_lens, yn, yn_lens, valid)
+            # drop_rate 0: a plain autoencoder, the "noised" input is the clean text
+            return Batch(None, None, y, y_lens, y.copy(), y_lens.copy(), valid)
         x, x_lens = self._load_fbanks(rows)
         return Batch(x, x_lens, y, y_lens, valid=valid)
 

@@ -14,8 +14,8 @@ has exactly the keys of the reference ASR (and of ``export_asr`` in
 * Speller: 2 stacked LSTM cells; attention reads the first cell's h.
 * ``attend_and_spell``: the speller loop over L steps with teacher forcing
   / scheduled sampling or greedy feedback (the train step, validation and
-  the forced-alignment pass).  Its random numbers are explicit inputs.  The
-  text autoencoder's ``tf_cutoff_last`` waits for ROADMAP item 7.
+  the forced-alignment pass, and the text autoencoder's decode over its
+  own memory).  Its random numbers are explicit inputs.
 * ``asr_forward``: listener + attend-and-spell, the train step's forward.
 """
 
@@ -164,7 +164,7 @@ def draw_scheduled_sampling(
 def attend_and_spell(
     model: LAS, enc_h: torch.Tensor, enc_lens: torch.Tensor, decode_step: int,
     teacher: Optional[torch.Tensor] = None, tf_draws: Optional[torch.Tensor] = None,
-    gumbel: Optional[torch.Tensor] = None,
+    gumbel: Optional[torch.Tensor] = None, tf_cutoff_last: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the attention + speller loop for ``decode_step`` characters ->
     ``(logits [B, L, V], attention [B, L, S])``.
@@ -176,7 +176,17 @@ def attend_and_spell(
     is zero.  ``teacher=None``: greedy feedback of the logits' argmax.
     The loop is ``ops.kernels.spell``: the CUDA kernels on the card, their
     plain versions on the CPU; through ``SpellCore`` (forward and backward)
-    when a gradient is needed, through ``spell_fwd`` alone otherwise."""
+    when a gradient is needed, through ``spell_fwd`` alone otherwise.
+
+    ``tf_cutoff_last`` (the text autoencoder's ``t < decode_step - 1``
+    guard: the last step feeds back the argmax even under a teacher) is
+    accepted and changes nothing: it only replaces the character fed AFTER
+    the last step, which no step consumes, so the logits, the attention and
+    every gradient are the same with and without it
+    (``tests/test_torch_tae.py`` holds that against the JAX scan).  The JAX
+    package keeps the flag off its kernel; here the text autoencoder decodes
+    through the same kernels as the ASR."""
+    del tf_cutoff_last
     # imported here: ops.kernels.spell builds its plain version on this module
     from ss_asr_tpu_torch.ops.kernels.decode import speller_weights
     from ss_asr_tpu_torch.ops.kernels.spell import SpellCore, spell_fwd

@@ -9,8 +9,10 @@ numpy constants (``mel_filterbank``, ``_windowed_dft_basis``,
 40-band Slaney mel spectrogram with a 25 ms periodic Hann window and 10 ms
 stride, ``center=True`` reflect padding, power 2, natural
 ``log(x + float64_eps)`` — librosa 0.6 ``melspectrogram`` semantics.  The
-DFT and mel projections are two ``torch.matmul``s, as JAX computes them
-outside any kernel on its main path (its Pallas frontend is opt-in).
+reflect-pad gather and the frame mask are tensor ops here; framing, both
+projections, the power and the log are ``ops.kernels.frontend.fbank``: the
+fused CUDA kernel for a tensor on the card, its plain version on the CPU.
+The device decides the route (JAX's ``FRONTEND_IMPL`` switch is not ported).
 """
 
 from __future__ import annotations
@@ -21,11 +23,12 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ss_asr_tpu_torch.ops.kernels.frontend import LOG_EPS  # noqa: F401  (this module's interface)
+from ss_asr_tpu_torch.ops.kernels.frontend import fbank, interleave_basis
+
 N_DIMS = 40  # mel bands
 WIN_MS = 25  # window length in ms
 STRIDE_MS = 10  # hop in ms
-#: log floor — float64 machine eps, as in the reference's np.finfo(float).eps
-LOG_EPS = float(np.finfo(np.float64).eps)
 
 
 def _hz_to_mel(f: np.ndarray) -> np.ndarray:
@@ -103,8 +106,10 @@ def num_frames(n_samples, n_fft: int, hop: int):
 def _projections(sr: int, n_mels: int, win_ms: int, stride_ms: int, device: torch.device):
     n_fft, _ = frame_params(sr, win_ms, stride_ms)
     wbasis = torch.from_numpy(_windowed_dft_basis(n_fft)).to(device)
-    mel = torch.from_numpy(mel_filterbank(sr, n_fft, n_mels)).to(device)
-    return wbasis, mel
+    mel = torch.from_numpy(np.ascontiguousarray(mel_filterbank(sr, n_fft, n_mels))).to(device)
+    # the kernel's column layout of the basis; the plain version does not read it
+    wbasis_il = interleave_basis(wbasis) if device.type == "cuda" else None
+    return wbasis, mel, wbasis_il
 
 
 def _reflect(idx: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
@@ -115,16 +120,30 @@ def _reflect(idx: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return torch.minimum(torch.where(m < n, m, period - m), n - 1).clamp(min=0)
 
 
-def _log_mel(frames: torch.Tensor, sr: int, n_mels: int, win_ms: int,
+def _log_mel(yp: torch.Tensor, nf: int, sr: int, n_mels: int, win_ms: int,
              stride_ms: int) -> torch.Tensor:
-    """Frames [..., n_fft] -> log-mel [..., n_mels]: windowed DFT, power,
-    mel projection, log."""
-    n_fft, _ = frame_params(sr, win_ms, stride_ms)
-    wbasis, mel = _projections(sr, n_mels, win_ms, stride_ms, frames.device)
-    spec = torch.matmul(frames, wbasis)
-    n_bins = 1 + n_fft // 2
-    power = spec[..., :n_bins] ** 2 + spec[..., n_bins:] ** 2
-    return torch.log(torch.matmul(power, mel) + LOG_EPS)
+    """Padded signals [B, Np] -> log-mel [B, nf, n_mels]: frames, windowed
+    DFT, power, mel projection, log (``fbank``: kernel or plain by device)."""
+    n_fft, hop = frame_params(sr, win_ms, stride_ms)
+    wbasis, mel, wbasis_il = _projections(sr, n_mels, win_ms, stride_ms, yp.device)
+    return fbank(yp, wbasis, mel, nf, n_fft, hop, wbasis_il)
+
+
+def reflect_padded(y: torch.Tensor, n_samples: Optional[torch.Tensor], pad: int) -> torch.Tensor:
+    """``[B, N]`` zero-padded rows -> ``[B, N + 2*pad]``: each row
+    reflect-padded at its OWN start and end (``n_samples[b]``, or N when
+    None), one gather.  Coordinates past a row's end padding repeat its
+    reflection; only masked frames read them."""
+    B, N = y.shape
+    dev = y.device
+    c = torch.arange(-pad, N + pad, device=dev)[None, :]  # signal coordinate
+    if n_samples is None:
+        idx = _reflect(c, torch.full((B, 1), N, device=dev)).expand(B, -1)
+    else:
+        ns = torch.clamp(n_samples.to(device=dev, dtype=torch.int64), min=1)[:, None]
+        # before the start and at/after the end: the row's own reflection
+        idx = torch.where((c >= 0) & (c < ns), c, _reflect(c, ns))
+    return torch.gather(y, 1, idx)
 
 
 def log_mel_fbank_batch(
@@ -149,21 +168,12 @@ def log_mel_fbank_batch(
     (JAX patches a buffer-level pad; the frames that differ are masked).
     """
     n_fft, hop = frame_params(sr, win_ms, stride_ms)
-    pad = n_fft // 2
     y = y.to(torch.float32)
     B, N = y.shape
     dev = y.device
-    c = torch.arange(-pad, N + pad, device=dev)[None, :]  # signal coordinate
-    if n_samples is None:
-        idx = _reflect(c, torch.full((B, 1), N, device=dev)).expand(B, -1)
-    else:
-        ns = torch.clamp(n_samples.to(device=dev, dtype=torch.int64), min=1)[:, None]
-        # before the start and at/after the end: the row's own reflection;
-        # coordinates past ns + pad only reach masked frames
-        idx = torch.where((c >= 0) & (c < ns), c, _reflect(c, ns))
-    yp = torch.gather(y, 1, idx)
+    yp = reflect_padded(y, n_samples, n_fft // 2)
     nf = int(num_frames(N, n_fft, hop))
-    fb = _log_mel(yp.unfold(1, n_fft, hop)[:, :nf], sr, n_mels, win_ms, stride_ms)
+    fb = _log_mel(yp, nf, sr, n_mels, win_ms, stride_ms)
     if n_samples is None:
         return fb, torch.full((B,), nf, dtype=torch.int32, device=dev)
     frame_lens = num_frames(n_samples.to(device=dev, dtype=torch.int64), n_fft, hop).to(torch.int32)
@@ -194,7 +204,7 @@ class StreamingFrontend:
     ``center=True``'s start reflect-padding is built once enough samples
     have arrived, the end padding at ``close()``, and ``n_fft - hop``
     samples of context carry across chunks.  Samples are framed in
-    ``block``-sized windows, as in JAX; the matmuls run on ``device``.
+    ``block``-sized windows, as in JAX; ``fbank`` runs on ``device``.
 
         fe = StreamingFrontend(sr=16000, device="cuda")
         for chunk in audio_chunks:
@@ -224,10 +234,10 @@ class StreamingFrontend:
             nf = min((take - n_fft) // hop + 1, nf_block)
             chunk = np.zeros((block,), np.float32)
             chunk[:take] = self._buf[:take]
-            frames = torch.as_tensor(chunk, device=self.device).unfold(0, n_fft, hop)[:nf]
             with torch.inference_mode():
-                fb = _log_mel(frames, self.sr, self.n_mels, self.win_ms, self.stride_ms)
-            out.append(fb.cpu().numpy())
+                fb = _log_mel(torch.as_tensor(chunk, device=self.device)[None], nf, self.sr,
+                              self.n_mels, self.win_ms, self.stride_ms)
+            out.append(fb[0].cpu().numpy())
             self._buf = self._buf[nf * hop:]
         return np.concatenate(out, 0) if out else np.zeros((0, self.n_mels), np.float32)
 

@@ -64,6 +64,9 @@ SIGNATURES = {
     # weights less ct_b, dg1, dg2, de, dqp, demb, B, S, F, M, H, V, L, device,
     # stream
     "ss_spell_bwd": [_P] * 24 + [_I] * 7 + [_I, _P],
+    # yp, wbasis_il, mel, out, B, Np, nf, n_fft, hop, n_bins, ncols, n_mels,
+    # log_eps, device, stream
+    "ss_fbank": [_P] * 4 + [_I] * 8 + [ctypes.c_float, _I, _P],
 }
 
 

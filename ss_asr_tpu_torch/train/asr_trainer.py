@@ -30,13 +30,10 @@ from ss_asr_tpu_torch.data.asr_dataset import ASRDataset
 from ss_asr_tpu_torch.models import las
 from ss_asr_tpu_torch.train import losses
 from ss_asr_tpu_torch.train.optim import Optimizer
-from ss_asr_tpu_torch.train.solver import Solver
+from ss_asr_tpu_torch.train.solver import OPTIONS_TODO, Solver, check_opt_options
 from ss_asr_tpu_torch.utils import checkpoint as ckpt
 from ss_asr_tpu_torch.utils.metrics import calc_acc, calc_cer, calc_err, draw_att
 from ss_asr_tpu_torch.utils.profiling import StepTimer
-
-OPTIONS_TODO = ("ROADMAP.md port item 11 (the ASR trainer's options: gradient accumulation, "
-                "learning-rate schedules, SpecAugment)")
 
 
 class ASRTrainer(Solver):
@@ -56,9 +53,7 @@ class ASRTrainer(Solver):
     def set_model(self):
         c = self.config["asr"]
         opt = c["opt"]
-        for key, off in (("accum_steps", 1), ("warmup_steps", 0), ("decay_steps", 0)):
-            if opt.get(key, off) not in (off, None):
-                raise NotImplementedError(f"asr.opt.{key}: {opt[key]}; see {OPTIONS_TODO}")
+        check_opt_options("asr.opt", opt)
         if c.get("augment"):
             raise NotImplementedError(f"asr.augment; see {OPTIONS_TODO}")
         self.cfg = las.ASRConfig.from_dict(c["mdl"])

@@ -20,15 +20,24 @@ that each step equals optax's:
   lr * d``.  Adam: optax's ``scale_by_adam`` (bias-corrected, ``eps``
   outside the root).  SGD: ``p -= lr * g``.
 
+* **Masks** (``optax.masked`` over a boolean tree, for the trainers that
+  update a subtree of several models' parameters): only the names in
+  ``mask`` are trained and carry accumulators, and the clip's global norm
+  runs over them alone; but the NaN skip reads EVERY parameter's gradient,
+  the frozen ones' included, as ``apply_if_finite`` wraps the whole chain.
+* **Update scales**: after the inner update, ``(names, factor)`` multiplies
+  the update of those names (``sae.listener_lr_scale``).
+
 The parameters are updated in place.  The accumulators are kept per
 parameter name; ``convert`` writes and reads them in the JAX package's npz
-layout.  Schedules, gradient accumulation, masks and update scales are
-ROADMAP items 7 and 11.
+layout.  ``prefix_mask`` / ``path_mask`` select names by their dotted path,
+as the JAX package's select leaves by key path.  Schedules and gradient
+accumulation are ROADMAP item 11.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Optional, Sequence, Set, Tuple
 
 import torch
 
@@ -48,15 +57,32 @@ def _safe_increment(n: torch.Tensor) -> torch.Tensor:
     return torch.where(n < _INT32_MAX, n + 1, n)
 
 
+def path_mask(names: Iterable[str], pred: Callable[[Tuple[str, ...]], bool]) -> Set[str]:
+    """The names whose dotted path satisfies ``pred`` (a tuple of its parts)."""
+    return {n for n in names if pred(tuple(n.split(".")))}
+
+
+def prefix_mask(names: Iterable[str], prefixes: Sequence[Tuple[str, ...]]) -> Set[str]:
+    """The names whose dotted path starts with any of the given prefixes."""
+    return path_mask(names, lambda path: any(path[: len(p)] == tuple(p) for p in prefixes))
+
+
 class Optimizer:
-    """clip -> Adadelta / Adam / SGD under the NaN skip, over named parameters."""
+    """clip -> Adadelta / Adam / SGD under the NaN skip, over named
+    parameters; ``mask`` (names) restricts the update to a subset,
+    ``update_scales`` [(names, factor)] damps some of its updates."""
 
     def __init__(self, params: Iterable[Tuple[str, torch.Tensor]], opt_type: str,
-                 learning_rate: float):
+                 learning_rate: float, mask: Optional[Iterable[str]] = None,
+                 update_scales: Optional[Sequence[Tuple[Iterable[str], float]]] = None):
         self.opt_type = opt_type.lower()
         if self.opt_type not in SLOTS:
             raise ValueError(f"Unknown optimizer type: {opt_type}")
         self.params: Dict[str, torch.Tensor] = dict(params)
+        self.mask = set(self.params) if mask is None else set(mask)
+        if not self.mask <= set(self.params):
+            raise ValueError(f"mask names {sorted(self.mask - set(self.params))} are no parameters")
+        self.scales = [(set(names), float(f)) for names, f in update_scales or ()]
         self.lr = float(learning_rate)
         dev = next(iter(self.params.values())).device
         self.notfinite_count = torch.zeros((), dtype=torch.int32, device=dev)
@@ -65,7 +91,8 @@ class Optimizer:
         self.count = torch.zeros((), dtype=torch.int32, device=dev)  # Adam's step count
         self.slots = SLOTS[self.opt_type]
         self.state: Dict[str, Dict[str, torch.Tensor]] = {
-            s: {k: torch.zeros_like(p) for k, p in self.params.items()} for s in self.slots}
+            s: {k: torch.zeros_like(p) for k, p in self.params.items() if k in self.mask}
+            for s in self.slots}
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -80,8 +107,8 @@ class Optimizer:
                                            _safe_increment(self.total_notfinite))
         self.last_finite = finite
         take = bool(finite) or int(self.notfinite_count) > MAX_CONSECUTIVE_ERRORS
-        if take:
-            self._update(grads)
+        if take:  # the frozen parameters' gradients go no further than the check
+            self._update({k: g for k, g in grads.items() if k in self.mask})
         return take
 
     def _update(self, grads: Dict[str, torch.Tensor]) -> None:
@@ -105,4 +132,8 @@ class Optimizer:
                 d = (mu / c1.to(mu.device)) / (torch.sqrt(nu / c2.to(nu.device)) + EPS)
             else:
                 d = g
-            self.params[k].add_(d * -self.lr)
+            u = d * -self.lr
+            for names, factor in self.scales:
+                if k in names:
+                    u = u * factor
+            self.params[k].add_(u)

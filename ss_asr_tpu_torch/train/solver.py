@@ -4,7 +4,8 @@ Port of ``ss_asr_tpu/train/solver.py`` for one device: per-module
 checkpoint paths under ``<ckpdir>/<name>/`` (npz, in the JAX package's tree
 layout, so either package resumes from the other's files), a resumable
 ``tracker.json``, per-module metric streams, the ``set_if_exists``
-defaults, and the parameter tree check on load.  Randomness comes from one
+defaults, the parameter tree check on load, and the ``genpath`` in / out
+checkpoint-relay helper of the trainers that share parameters.  Randomness comes from one
 ``torch.Generator`` seeded with ``seed + crc32(module_id) % 2**16`` (the
 JAX package's key offset; the streams themselves differ from
 ``jax.random``'s).  A ``parallel`` section asking for more than one device
@@ -17,7 +18,7 @@ from __future__ import annotations
 import os
 import zlib
 from types import SimpleNamespace
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +28,22 @@ from ss_asr_tpu_torch.utils.logging import MetricLogger
 from ss_asr_tpu_torch.utils.tracker import Tracker
 
 MULTI_DEVICE_TODO = "ROADMAP.md port item 9 (data-parallel serving and training)"
+OPTIONS_TODO = ("ROADMAP.md port item 11 (the trainers' options: gradient accumulation, "
+                "learning-rate schedules, SpecAugment)")
+
+
+def check_opt_options(section: str, opt: dict) -> None:
+    """Raise for the optimizer options the port does not have yet."""
+    for key, off in (("accum_steps", 1), ("warmup_steps", 0), ("decay_steps", 0)):
+        if opt.get(key, off) not in (off, None):
+            raise NotImplementedError(f"{section}.{key}: {opt[key]}; see {OPTIONS_TODO}")
+
+
+def joint_named_parameters(models: Dict[str, torch.nn.Module]):
+    """The trainable parameters of several models under one name space:
+    ``<model key>.<parameter name>``, the JAX package's joint tree paths."""
+    return [(f"{key}.{n}", p) for key, m in models.items() for n, p in m.named_parameters()
+            if p.requires_grad]
 
 
 def make_paras(
@@ -130,6 +147,53 @@ class Solver:
                     "section")
         self.loaded_ckpt = True
         return loaded
+
+    def load_module(self, key: str, module: torch.nn.Module, init_fn, ckp_path: str):
+        """``module`` on the solver's device holding the tree at ``ckp_path``
+        (or ``init_fn(seed)``), converted by ``convert``'s functions for the
+        model ``key``; the LSTMs' second bias stays frozen at zero, so the
+        trainable leaves are the JAX package's."""
+        from ss_asr_tpu_torch import convert
+
+        sd = {k: v for k, v in module.state_dict().items() if "running_" not in k}
+        tree = self.setup_params(convert.PARAMS_FROM_STATE[key](sd), init_fn, ckp_path)
+        module.load_state_dict(convert.STATE_FROM_PARAMS[key](tree), strict=False)  # bias_hh = 0
+        for name, p in module.named_parameters():
+            p.requires_grad_("bias_hh" not in name)
+        return module.to(self.device)
+
+    def tree(self, key: str) -> Dict:
+        """The JAX parameter tree of ``self.models[key]`` (numpy leaves)."""
+        from ss_asr_tpu_torch import convert
+
+        return convert.PARAMS_FROM_STATE[key](self.models[key].state_dict())
+
+    def zero_grad(self) -> None:
+        for m in self.models.values():
+            m.zero_grad(set_to_none=True)
+
+    def restore_opt(self, optim, path: str, prefixes) -> None:
+        """Load ``optim``'s state over ``self.models`` from ``path`` (either
+        package's file) when this run resumed from its own checkpoint."""
+        from ss_asr_tpu_torch import convert
+
+        if not (self.loaded_ckpt and ckpt.exists(path)):
+            return
+        self.verbose(f"Restoring optimizer state from {path}")
+        if not convert.load_opt_state_leaves(optim, self.models, prefixes,
+                                             ckpt.load_opt_state(path)):
+            self.verbose("Optimizer state does not fit this optimizer; starting it fresh")
+
+    def genpath(self, p, module_id: str) -> Tuple[str, str]:
+        """In / out checkpoint path pair for parameter relays: None -> the
+        module's own file twice, a string -> that file twice, a pair as is."""
+        if p is None:
+            q = os.path.join(self.ckpdir, f"{module_id}.npz")
+            return (q, q)
+        if isinstance(p, str):
+            return (p, p)
+        assert len(p) == 2
+        return tuple(p)
 
     def save_state(self, tree: Dict, opt_leaves: Optional[List[np.ndarray]] = None) -> None:
         """Save params (and optimizer leaves) to the default paths; with

@@ -80,6 +80,11 @@ class MetricLogger:
         if self._tb:
             self._tb.add_image(self._key(key), val, step)
 
+    def embedding(self, key: str, val, meta, step: int) -> None:
+        self._emit("embedding", key, f"n={len(meta)}", step)
+        if self._tb:
+            self._tb.add_embedding(val, tag=self._key(key), metadata=meta, global_step=step)
+
     def close(self) -> None:
         self._jsonl.close()
         if self._tb:

@@ -2,13 +2,15 @@
 
 Copied from ``ss_asr_tpu/vocab.py`` (the subset the port needs): the
 fixed 50-symbol inventory, ``SOS_ID=0`` (also the pad id), ``EOS_ID=1``,
-``Mapper.encode`` (an index's normalised text -> ids) and
+``normalize_string`` (raw text -> the closed inventory, for
+preprocessing), ``Mapper.encode`` (an index's normalised text -> ids) and
 ``Mapper.translate``, which cuts after the first EOS and drops SOS/EOS.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import re
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -29,6 +31,24 @@ SOS_ID = 0
 EOS_ID = 1
 
 VOCAB_SIZE = len(VOCAB)
+
+
+_OOV_RE = re.compile(f"[^{re.escape(ALL_CHARS)}]")
+_WS_RE = re.compile(r"\s+")
+
+
+def normalize_string(s: str, append_tokens: bool = True) -> Tuple[str, int]:
+    """Normalise raw text into the closed character inventory -> ``(text,
+    s_len)``: lowercase, whitespace collapsed, out-of-inventory characters
+    replaced by UNK, SOS / EOS added; ``s_len`` is the collapsed lowercase
+    string's length plus 2, measured before the UNK substitution."""
+    s = s.lower()
+    s = _WS_RE.sub(" ", s)
+    s_len = len(s) + 2
+    s = _OOV_RE.sub(UNK_TKN, s)
+    if append_tokens:
+        s = SOS_TKN + s + EOS_TKN
+    return s, s_len
 
 
 def trim_eos(sequence: Sequence[int]) -> List[int]:

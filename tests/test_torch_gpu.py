@@ -27,13 +27,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import frontier_gaps, replay_frontier
+from chip_smoke import (FBANK_LIN_TOL, FBANK_LOG_TOL, anchored_losses, aux_trainer, fbank_errors,
+                        frontier_gaps, replay_frontier)
 from ss_asr_tpu_torch import convert
 from ss_asr_tpu_torch.api import Transcriber
 from ss_asr_tpu_torch.models import charlm, las
 from ss_asr_tpu_torch.ops import frontend
 from ss_asr_tpu_torch.ops.kernels import beam as kbeam
 from ss_asr_tpu_torch.ops.kernels import decode as kdec
+from ss_asr_tpu_torch.ops.kernels import frontend as kfe
 from ss_asr_tpu_torch.ops.kernels import lstm as klstm
 from ss_asr_tpu_torch.ops.kernels import spell as kspell
 from ss_asr_tpu_torch.vocab import EOS_ID, VOCAB_SIZE
@@ -110,6 +112,61 @@ def test_greedy_decode_early_exit(cuda):
         comp_h = las.attention_precompute(model.attention, enc_h)
         got = kdec.greedy_decode(model, enc_h, comp_h, enc_lens, 9).cpu()
     assert (got[:, 0] == EOS_ID).all() and (got[:, 1:] == 0).all()
+
+
+@pytest.mark.parametrize("sr", [8000, 16000, 22050])
+def test_fbank_kernel_matches_plain(cuda, sr):
+    """K11 against fbank_plain by the smoke's rule (log domain 1e-4 above the
+    frame's floor, linear domain 1e-5 of the row's largest energy): a full
+    row, one shorter than the pad width, one sample, and a frame count that
+    is not a multiple of the kernel's tile."""
+    rng = np.random.default_rng(sr)
+    n_fft, hop = frontend.frame_params(sr)
+    pad = n_fft // 2
+    lens = np.array([sr // 2 + 13, pad // 3, 1, pad + 37, sr // 3])
+    buf = np.zeros((len(lens), int(lens.max())), np.float32)
+    for i, n in enumerate(lens):
+        buf[i, :n] = 0.3 * rng.standard_normal(n)
+    y = torch.from_numpy(buf).to(cuda)
+    yp = frontend.reflect_padded(y, torch.from_numpy(lens).to(cuda), pad)
+    nf = int(frontend.num_frames(buf.shape[1], n_fft, hop))
+    assert nf % 32 != 0
+    wbasis, mel, wil = frontend._projections(sr, 40, 25, 10, yp.device)
+    before = kfe.LAUNCHES["fbank"]
+    got = kfe.fbank(yp, wbasis, mel, nf, n_fft, hop, wil)
+    torch.cuda.synchronize()
+    assert kfe.LAUNCHES["fbank"] == before + 1
+    want = kfe.fbank_plain(yp, wbasis, mel, nf, n_fft, hop)
+    log_err, lin_err = fbank_errors(torch, got, want)
+    assert log_err <= FBANK_LOG_TOL and lin_err <= FBANK_LIN_TOL
+    # without the caller's interleaved basis the wrapper builds it
+    torch.testing.assert_close(kfe.fbank(yp, wbasis, mel, nf, n_fft, hop), got, atol=0, rtol=0)
+    # a short buffer: fewer frames than one tile
+    got = kfe.fbank(yp[:, : 4 * hop + n_fft], wbasis, mel, 5, n_fft, hop, wil)
+    want = kfe.fbank_plain(yp[:, : 4 * hop + n_fft], wbasis, mel, 5, n_fft, hop)
+    log_err, lin_err = fbank_errors(torch, got, want)
+    assert got.shape == (5, 5, 40) and log_err <= FBANK_LOG_TOL and lin_err <= FBANK_LIN_TOL
+
+
+def test_fbank_kernel_is_forward_only(cuda):
+    n_fft, hop = frontend.frame_params(8000)
+    wbasis, mel, wil = frontend._projections(8000, 40, 25, 10, torch.device("cuda"))
+    yp = torch.randn(2, 1000, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kfe.fbank(yp, wbasis, mel, 5, n_fft, hop, wil)
+
+
+def test_streaming_frontend_on_the_card_launches_the_kernel(cuda):
+    rng = np.random.default_rng(1)
+    y = (0.3 * rng.standard_normal(40000)).astype(np.float32)
+    before = kfe.LAUNCHES["fbank"]
+    sfe = frontend.StreamingFrontend(16000, device=cuda)
+    frames = np.concatenate([sfe.push(c) for c in np.array_split(y, 7)] + [sfe.close()], 0)
+    assert kfe.LAUNCHES["fbank"] > before
+    want = frontend.compute_fbank(y, 16000)
+    assert frames.shape == want.shape
+    log_err, lin_err = fbank_errors(torch, torch.from_numpy(frames), torch.from_numpy(want))
+    assert log_err <= FBANK_LOG_TOL and lin_err <= FBANK_LIN_TOL
 
 
 def test_frontend_on_the_card_matches_the_cpu(cuda):
@@ -396,6 +453,119 @@ def test_asr_trainer_step_on_the_card_matches_the_cpu(cuda, tmp_path):
     assert out[1][0] == pytest.approx(out[0][0], rel=1e-5)
     for a, b in zip(out[1][1], out[0][1]):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+
+
+AUX_ASR = dict(encoder_state_size=16, decoder_state_size=16, mlp_out_size=8, feature_dim=8,
+               tf_rate=0.5)
+AUX_CONFIG = {
+    "asr": {"mdl": AUX_ASR},
+    "tae": {"opt": {"type": "Adam", "learning_rate": 1e-3},
+            "mdl": {"emb_dim": 6, "state_size": 16, "num_layers": 2}},
+    "sae": {"opt": {"type": "Adam", "learning_rate": 1e-3}, "listener_lr_scale": 0.5,
+            "mdl": {"kernel_sizes": [[1, 5], [5, 1], [3, 1]], "num_filters": [4, 6, 8],
+                    "pool_kernel_sizes": [[3, 1], [5, 1], [2000, 40]]}},
+    "adv": {"G_opt": {"type": "Adadelta", "learning_rate": 1.0},
+            "D_opt": {"type": "Adadelta", "learning_rate": 1.0}, "mdl": {"hidden_dim": 12}},
+}
+
+
+def _aux_three(cls, tmp_path, name, trees):
+    """The trainer on the card, on the CPU, and in float64 on the CPU."""
+    ts = [aux_trainer(cls, AUX_CONFIG, str(tmp_path), f"{name}_{tag}", trees, dev)
+          for tag, dev in (("card", "cuda"), ("cpu", "cpu"), ("f64", "cpu"))]
+    for m in ts[2].models.values():
+        m.double()
+    return ts
+
+
+def _aux_trees():
+    from ss_asr_tpu_torch.models import discriminator as disc_mod
+    from ss_asr_tpu_torch.models import speech_autoencoder as sae_mod
+    from ss_asr_tpu_torch.models import text_autoencoder as tae_mod
+
+    params, bn = convert.init_sae_numpy(3, sae_mod.SAEConfig.from_dict(
+        {**AUX_CONFIG["sae"]["mdl"], "feature_dim": 8, "listener_out_dim": 32}))
+    return {"asr": convert.init_asr_numpy(1, las.ASRConfig(**AUX_ASR)),
+            "tae": convert.init_tae_numpy(2, tae_mod.TAEConfig(**AUX_CONFIG["tae"]["mdl"])),
+            "sae": {"params": params, "bn_state": bn},
+            "adv": convert.init_disc_numpy(4, disc_mod.DiscriminatorConfig(in_dim=32,
+                                                                           hidden_dim=12))}
+
+
+def _unchanged_outside(trainer, optims, step):
+    """One update: what the optimizers' masks leave out stays bit-equal."""
+    from ss_asr_tpu_torch.train.solver import joint_named_parameters
+
+    before = {n: p.detach().clone() for n, p in joint_named_parameters(trainer.models)}
+    step()
+    trained = set().union(*(o.mask for o in optims))
+    moved = {n for n, p in joint_named_parameters(trainer.models) if not torch.equal(before[n], p)}
+    assert moved == trained
+
+
+def _texts(rng, rows, width, short=()):
+    y = np.zeros((rows, width), np.int64)
+    for i in range(rows):
+        k = short[i] if i < len(short) else int(rng.integers(3, width - 1))
+        y[i, 1 : k + 1] = rng.integers(3, VOCAB_SIZE, size=k)
+        y[i, k + 1] = EOS_ID
+    return torch.from_numpy(y), torch.from_numpy((y != 0).sum(-1) + 1)
+
+
+def test_tae_step_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Noised memories of 1 and 2 characters, S = 11 (no multiple of 8)."""
+    from ss_asr_tpu_torch.train.tae_trainer import TAETrainer
+
+    rng = np.random.default_rng(5)
+    trees = _aux_trees()
+    y, _ = _texts(rng, 5, 11)
+    yn, nl = _texts(rng, 5, 11, short=(1, 2))
+    ts = _aux_three(TAETrainer, tmp_path, "tae", {k: trees[k] for k in ("asr", "tae")})
+    anchored_losses(torch, "TAE step", ts,
+                    lambda t, dev: t.loss_of(y.to(dev), yn.to(dev), nl.to(dev))[0])
+    before = {k: kernel.LAUNCHES[k] for kernel in (klstm, kspell) for k in kernel.LAUNCHES}
+    _unchanged_outside(ts[0], [ts[0].optim], lambda: ts[0].step(y.to(cuda), yn.to(cuda),
+                                                                nl.to(cuda)))
+    after = {k: kernel.LAUNCHES[k] for kernel in (klstm, kspell) for k in kernel.LAUNCHES}
+    assert all(after[k] > before[k] for k in ("lstm_fwd", "lstm_bwd", "spell_fwd", "spell_bwd"))
+
+
+def test_sae_step_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """T = 62 (the listener drops 6 frames; the reconstruction is padded up)."""
+    from ss_asr_tpu_torch.train.sae_trainer import SAETrainer
+
+    rng = np.random.default_rng(6)
+    trees = _aux_trees()
+    x = torch.from_numpy((3.0 * rng.standard_normal((3, 62, 8))).astype(np.float32))
+    x_lens = torch.tensor([60, 50, 41], dtype=torch.int32)
+    ts = _aux_three(SAETrainer, tmp_path, "sae", {k: trees[k] for k in ("asr", "sae")})
+    anchored_losses(torch, "SAE step", ts, lambda t, dev: t.recon_loss(
+        x.to(dev).to(next(t.models["sae"].parameters()).dtype), x_lens.to(dev), True)[0],
+        pooled=("sae.encoder.",))
+    _unchanged_outside(ts[0], [ts[0].optim], lambda: ts[0].step(x.to(cuda), x_lens.to(cuda)))
+
+
+def test_adv_steps_on_the_card_match_the_cpu(cuda, tmp_path):
+    from ss_asr_tpu_torch.train.adv_trainer import ADVTrainer
+
+    rng = np.random.default_rng(7)
+    trees = _aux_trees()
+    x = torch.from_numpy(rng.standard_normal((3, 32, 8)).astype(np.float32))
+    x_lens = torch.tensor([32, 20, 9], dtype=torch.int32)
+    y, y_lens = _texts(rng, 3, 9, short=(6, 3, 1))
+    ts = _aux_three(ADVTrainer, tmp_path, "adv", {k: trees[k] for k in ("asr", "tae", "adv")})
+
+    def cast(t, dev):
+        return x.to(dev).to(next(t.models["disc"].parameters()).dtype)
+
+    anchored_losses(torch, "ADV D-step", ts, lambda t, dev: sum(t.d_losses(
+        cast(t, dev), x_lens.to(dev), y.to(dev), y_lens.to(dev), t.label_smoothing)[:2]))
+    anchored_losses(torch, "ADV G-step", ts, lambda t, dev: t.g_loss(cast(t, dev), x_lens.to(dev)))
+    card = ts[0]
+    args = (x.to(cuda), x_lens.to(cuda))
+    _unchanged_outside(card, [card.D_optim], lambda: card.d_step(*args, y.to(cuda),
+                                                                  y_lens.to(cuda)))
+    _unchanged_outside(card, [card.G_optim], lambda: card.g_step(*args))
 
 
 def test_beam_transcriber_on_the_card_matches_the_cpu(cuda):

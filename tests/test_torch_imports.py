@@ -25,6 +25,7 @@ import ss_asr_tpu_torch
 from ss_asr_tpu_torch.ops.kernels import beam as kbeam
 from ss_asr_tpu_torch.ops.kernels import build
 from ss_asr_tpu_torch.ops.kernels import decode as kdecode
+from ss_asr_tpu_torch.ops.kernels import frontend as kfrontend
 from ss_asr_tpu_torch.ops.kernels import lstm as klstm
 from ss_asr_tpu_torch.ops.kernels import spell as kspell
 
@@ -34,7 +35,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 #: every kernel wrapper of the port
 WRAPPERS = [klstm.lstm_fwd, klstm.lstm_bwd, kdecode.greedy_decode, kbeam.beam_device,
-            kspell.spell_fwd, kspell.spell_bwd]
+            kspell.spell_fwd, kspell.spell_bwd, kfrontend.fbank]
 
 
 def _modules():
@@ -45,6 +46,12 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules() + ["chip_smoke"]
     assert "ss_asr_tpu_torch.ops.kernels.decode" in mods and len(mods) > 15
+    assert {"ss_asr_tpu_torch.ops.kernels.frontend", "ss_asr_tpu_torch.cli.preprocess",
+            "ss_asr_tpu_torch.cli.mkdata", "ss_asr_tpu_torch.data.xmlparser",
+            "ss_asr_tpu_torch.train.seed", "ss_asr_tpu_torch.train.tae_trainer",
+            "ss_asr_tpu_torch.train.sae_trainer", "ss_asr_tpu_torch.train.adv_trainer",
+            "ss_asr_tpu_torch.models.text_autoencoder", "ss_asr_tpu_torch.models.discriminator",
+            "ss_asr_tpu_torch.models.speech_autoencoder"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         "sys.modules['jax'] = None\n"
@@ -90,7 +97,8 @@ def test_library_name_follows_the_sources(tmp_path):
     assert a == build.library_path(tmp_path) and a.parent == tmp_path
     assert a.name.startswith("libss_asr_kernels_") and a.suffix == ".so"
     assert {s.name for s in build.sources()} >= {"lstm_fwd.cu", "lstm_bwd.cu", "greedy_decode.cu",
-                                                  "beam_decode.cu", "spell_fwd.cu", "spell_bwd.cu"}
+                                                  "beam_decode.cu", "spell_fwd.cu", "spell_bwd.cu",
+                                                  "frontend.cu"}
     # every C entry point the wrappers call has its signature declared
     called = set()
     for fn in WRAPPERS:

@@ -244,7 +244,9 @@ def test_cli_train_refuses_missing_cuda_and_unported_trainers(monkeypatch):
     with pytest.raises(SystemExit, match="CUDA is not available"):
         train.main(["ASRTrainer"])
     with pytest.raises(NotImplementedError, match="ROADMAP.md port item 7"):
-        train.main(["TAETrainer", "--device", "cpu"])
+        train.main(["LMTrainer", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md port item 7"):
+        train.main(["ASRTester", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("opt", [{"accum_steps": 2}, {"warmup_steps": 10}, {"decay_steps": 5}])
