@@ -44,7 +44,11 @@ Phases, in order; any failure exits non-zero:
      (with a cotangent on the attention maps): K3's dgx and dW_hh, K10's
      five streams, each held by a float64 anchor: its relative L2 error
      against a float64 run of the plain version at most 4x the plain
-     float32 version's own error against that run, and at most 1e-4.
+     float32 version's own error against that run, and at most 1e-4.  The
+     flagship shapes must take K3's cluster route (its own launch counter);
+     K3 is also held at a small cluster (H = 128) and at a shape that takes
+     the streaming route (H = 384), and its first layer is timed at every
+     tile height and on the streaming route.
    * fbank (K11, the fused log-mel frontend) on reflect-padded signals at
      its callers' shapes: the training batch (B = 32, 512 frames, sr 22050,
      ragged), a preprocess batch (B = 64, sr 16000, rows of one sample), the
@@ -55,7 +59,9 @@ Phases, in order; any failure exits non-zero:
      the linear domain.
    Beside each kernel's time stand its bound (the larger of its float32
    operations over 67 TFLOP/s and its bytes, inputs once and outputs once,
-   over 3.35 TB/s) and, where one PyTorch call computes the same function,
+   over 3.35 TB/s; K11's DFT product, which runs on the tensor cores, at
+   the TF32 rate of 495 TFLOP/s, with the float32 figure beside it as
+   ``bound_f32_ms``) and, where one PyTorch call computes the same function,
    that call's time: a cuDNN ``nn.LSTM`` layer for K2 (forward) and K3
    (forward + backward), the two-matmul pipeline for K11.
    Kernel and plain times are CUDA-event medians after a warm-up; the
@@ -77,7 +83,9 @@ Phases, in order; any failure exits non-zero:
    launch counters just before its requests (after one warm-up request)
    and reads them just after its last reply; every kernel the path runs
    must have launched (K11 on every one of them: the server is in signal
-   mode), and the JSON line's launches sum these counts.
+   mode), and the JSON line's launches sum these counts.  After each
+   phase's server has stopped, a torch.profiler split of three direct
+   batches says where a steady batch's time goes.
 6. The train step at the flagship (B = 32, T = 512 frames from seeded
    waveforms, L = 48, conf/default.yaml's Adadelta): an ``ASRTrainer`` on
    the card and one on the CPU (plain versions) take one step on the same
@@ -87,8 +95,8 @@ Phases, in order; any failure exits non-zero:
    every trained parameter, the listener's included, with a gradient.
    Then 12 steps (frontend from the waveform + forward + backward + clip +
    Adadelta) timed with CUDA events, the launch counters zeroed just
-   before and read just after (K2, K3, K9 and K10 must launch), and a
-   torch.profiler split of 3 steps.
+   before and read just after (K2, K3, K9 and K10 must launch, every K3
+   launch on the cluster route), and a torch.profiler split of 3 steps.
 7. ``python -m ss_asr_tpu_torch.cli.train ASRTrainer`` as a subprocess on a
    seeded corpus of 32 utterances (40 mels, 300-512 frames, texts up to 48
    ids): 30 steps of the one batch, whose loss must fall, writing
@@ -103,7 +111,8 @@ Phases, in order; any failure exits non-zero:
    gradient on the card against the CPU's plain versions by the
    float64-anchored rule of phase 6; then timed updates with the launch
    counters zeroed before and read after (K2 / K3, and K9 / K10 for the
-   TAE, must launch), every parameter outside the optimizer's mask
+   TAE, must launch, K3 on the cluster route), every parameter outside the
+   optimizer's mask
    bit-unchanged and every one inside moved.  Then ``cli.train Seed`` as a
    subprocess on the preprocessed corpus (TAE -> ADV -> SAE, the three ASR
    relays written) and ``cli.train ASRTrainer`` from the last relay, whose
@@ -588,13 +597,14 @@ def check_beam(torch, rng, model, lm):
                 toks = front[0]
             if bool((toks == EOS_ID).any()):
                 fail(f"{name} K={K}: an EOS bias of -50 still emitted EOS")
+            use = lm_ws if lm_ is not None else None
+            b_ms, b_by = bound(B * K * MAX_STEPS * speller_row_ops(ws, enc_h.shape[1], use),
+                               nbytes(enc_h, comp_h, enc_lens, *front, *ws, *(use or ())))
             print(f"{name} K={K} full {MAX_STEPS} steps B={B} S={enc_h.shape[1]}: kernel "
                   f"{k_ms:.3f} ms ({1e3 * k_ms / MAX_STEPS:.1f} us/step), plain {p_ms:.3f} ms "
-                  f"({1e3 * p_ms / MAX_STEPS:.1f} us/step)", flush=True)
+                  f"({1e3 * p_ms / MAX_STEPS:.1f} us/step), bound {b_ms:.4f} ms ({b_by})",
+                  flush=True)
             if K == BEAM_WIDTHS[0]:  # the default config's width goes into the JSON
-                use = lm_ws if lm_ is not None else None
-                b_ms, b_by = bound(B * K * MAX_STEPS * speller_row_ops(ws, enc_h.shape[1], use),
-                                   nbytes(enc_h, comp_h, enc_lens, *front, *ws, *(use or ())))
                 out[name].update(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
                                  bound_by=b_by)
     return out
@@ -618,7 +628,8 @@ def check_spell(torch, rng, model):
                 tf_draws = torch.zeros(L, device=DEVICE)
                 gumbel = torch.zeros(L, Bs, VOCAB_SIZE, device=DEVICE)
             else:
-                tf_draws, gumbel = las.draw_scheduled_sampling(L, Bs, tf, model.cfg, g, DEVICE)
+                tf_draws, gumbel = las.draw_scheduled_sampling(L, Bs, tf, model.cfg, g,
+                                                               device=DEVICE)
             ids = torch.randint(0, VOCAB_SIZE, (L, Bs), generator=g).to(DEVICE)
             args = (model, enc_h, comp_h, enc_lens, tf_draws, gumbel, model.embed.weight[ids])
             with torch.inference_mode():
@@ -629,15 +640,16 @@ def check_spell(torch, rng, model):
                 k_ms = cuda_ms(torch, lambda: kspell.spell_fwd(*args))
                 p_ms = cuda_ms(torch, lambda: kspell.spell_fwd_plain(*args), reps=3)
             mode = "greedy" if tf is None else f"tf {tf} ({int(tf_draws.sum())}/{L} teacher)"
+            ws = speller_operands(model, enc_h.device)
+            b_ms, b_by = bound(Bs * L * speller_row_ops(ws, enc_h.shape[1]),
+                               nbytes(*args[1:], *ws, *got))
             print(f"spell_fwd B={Bs} L={L} S={enc_h.shape[1]} {mode}: 7 streams max_abs_err "
-                  f"{err:.3e}; kernel {k_ms:.3f} ms plain {p_ms:.3f} ms", flush=True)
+                  f"{err:.3e}; kernel {k_ms:.3f} ms plain {p_ms:.3f} ms bound {b_ms:.4f} ms "
+                  f"({b_by})", flush=True)
             if not err <= SPELL_TOL:
                 fail(f"spell_fwd B={Bs} L={L} {mode}: max_abs_err {err} > {SPELL_TOL}")
             res["max_abs_err"] = max(res["max_abs_err"], err)
             if (Bs, L, tf) == (*SPELL_SHAPES[1], 1.0):  # the alignment pass of the server
-                ws = speller_operands(model, enc_h.device)
-                b_ms, b_by = bound(Bs * L * speller_row_ops(ws, enc_h.shape[1]),
-                                   nbytes(*args[1:], *ws, *got))
                 res.update(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
     return {"spell_fwd": res}
 
@@ -730,12 +742,14 @@ def serve_phase(torch, tag, t, sigs, need, reload_paths=None, routes=()):
     The launch counters are zeroed just before each path's requests (after
     one warm-up request) and read just after its last reply, so each count
     is that path's own; every kernel of ``need`` (the batch) and of each
-    route must have launched.  Returns {path: launches}."""
+    route must have launched.  Last, a torch.profiler split of three direct
+    batches.  Returns {path: launches}."""
     from ss_asr_tpu_torch.data.audio import read_wav
 
     bodies = [wav_bytes(s, SR) for s in sigs]
     # the server's signals are the WAVs' int16 samples read back
-    direct = t.transcribe_signal_batch([read_wav(io.BytesIO(b))[1] for b in bodies], sr=SR)
+    signals = [read_wav(io.BytesIO(b))[1] for b in bodies]
+    direct = t.transcribe_signal_batch(signals, sr=SR)
     launches = {}
     with serving(t, reload_paths) as post:
         post("/transcribe", bodies[0])  # warm-up: lazy CUDA/cuBLAS set-up, not steady state
@@ -761,6 +775,9 @@ def serve_phase(torch, tag, t, sigs, need, reload_paths=None, routes=()):
         for name in names:
             if launches[path][name] < 1:
                 fail(f"{path}: launched {name} {launches[path][name]} times")
+    # where a steady batch's time goes: the direct call, outside the launch counts
+    print(f"{tag}: one direct batch of {len(signals)} signals, torch.profiler:", flush=True)
+    profile_steps(torch, lambda: t.transcribe_signal_batch(signals, sr=SR), 3)
     return launches
 
 
@@ -876,7 +893,10 @@ def anchored(torch, name, kernel, plain, ref64):
 def check_lstm_bwd(torch, rng, asr_tree):
     """K3 against lstm_bwd_plain on the four listener layers' shapes (B =
     TRAIN_B, both directions, ragged lengths including 0 and 1): dgx and
-    dW_hh by the float64-anchored rule."""
+    dW_hh by the float64-anchored rule, on the cluster route (its launch
+    counter must say so).  Then the same rule at a small cluster (H = 128:
+    two CTAs) and at a shape that takes the streaming route (H = 384), and
+    the first layer's time at every tile height of the cluster route."""
     import numpy as np
 
     from ss_asr_tpu_torch.ops.kernels import lstm as klstm
@@ -888,22 +908,36 @@ def check_lstm_bwd(torch, rng, asr_tree):
                             for d in range(2)])
         return dgx, dwhh
 
+    def operands(whh, T, Bn):
+        Hn = whh.shape[1]
+        gx = torch.from_numpy(rng.standard_normal((2, T, Bn, 4 * Hn)).astype("float32")).to(DEVICE)
+        dy = torch.from_numpy(rng.standard_normal((2, T, Bn, Hn)).astype("float32")).to(DEVICE)
+        lens = rng.integers(2, T + 1, size=Bn)
+        lens[:3] = (0, 1, T)
+        return gx, dy, torch.from_numpy(lens.astype("int32")).to(DEVICE)
+
     H = asr_tree["encoder"]["blstm4"]["fwd"]["w_hh"].shape[0]
     err_max, ms, plain_ms, lib_ms, ops, moved = 0.0, 0.0, 0.0, 0.0, 0.0, 0
     rev = (False, True)
+    route = klstm.lstm_bwd_route(H, TRAIN_B, 2)
+    if route[0] == 0:
+        fail(f"lstm_bwd: H={H} B={TRAIN_B} takes the streaming route, not a cluster")
+    held = klstm.resident_clusters(H, route[0], route[1], DEVICE)
+    print(f"lstm_bwd H={H} B={TRAIN_B}: clusters of {route[0]} CTAs, tiles of {route[1]} rows: "
+          f"{-(-TRAIN_B // route[1]) * 2} clusters, of which the card holds {held} at once "
+          f"(the route's table says {klstm.CARD_CLUSTERS[route[0]]})", flush=True)
     for layer, T in zip(("pblstm1", "pblstm2", "pblstm3", "blstm4"),
                         (FRAMES, FRAMES // 2, FRAMES // 4, FRAMES // 8)):
         p = asr_tree["encoder"][layer]
         whh = torch.from_numpy(np.stack([p["fwd"]["w_hh"], p["bwd"]["w_hh"]])).to(DEVICE)
-        gx = torch.from_numpy(rng.standard_normal((2, T, TRAIN_B, 4 * H)).astype("float32")).to(DEVICE)
-        dy = torch.from_numpy(rng.standard_normal((2, T, TRAIN_B, H)).astype("float32")).to(DEVICE)
-        lens = rng.integers(2, T + 1, size=TRAIN_B)
-        lens[:3] = (0, 1, T)
-        lengths = torch.from_numpy(lens.astype("int32")).to(DEVICE)
+        gx, dy, lengths = operands(whh, T, TRAIN_B)
         with torch.no_grad():
             y, cs = klstm.lstm_fwd(gx, whh, lengths, rev)
+            before = klstm.LAUNCHES["lstm_bwd_cluster"]
             got = klstm.lstm_bwd(gx, whh, lengths, y, cs, dy, rev)
             torch.cuda.synchronize()
+            if klstm.LAUNCHES["lstm_bwd_cluster"] != before + 1:
+                fail(f"lstm_bwd {layer}: the flagship shape did not take the cluster route")
             want = plain(gx, whh, lengths, y, cs, dy, rev)
             ref = plain(*(t.double() for t in (gx, whh)), lengths,
                         *(t.double() for t in (y, cs, dy)), rev)
@@ -913,9 +947,20 @@ def check_lstm_bwd(torch, rng, asr_tree):
             p_ms = cuda_ms(torch, lambda: plain(gx, whh, lengths, y, cs, dy, rev), reps=3)
         err = float((got[0] - want[0]).abs().max())
         l_ms = cudnn_lstm_ms(torch, p["fwd"]["w_ih"].shape[0], H, T, TRAIN_B, backward=True)
-        print(f"lstm_bwd {layer} T={T} B={TRAIN_B} H={H} 2 dirs: dgx max_abs_err {err:.3e}; "
-              f"kernel {k_ms:.3f} ms plain {p_ms:.3f} ms cuDNN nn.LSTM forward + backward "
-              f"{l_ms:.3f} ms", flush=True)
+        print(f"lstm_bwd {layer} T={T} B={TRAIN_B} H={H} 2 dirs (cluster of {route[0]}, tiles of "
+              f"{route[1]} rows): dgx max_abs_err {err:.3e}; kernel {k_ms:.3f} ms "
+              f"({k_ms / T * 1e3:.2f} us per step with the dW_hh product) plain {p_ms:.3f} ms "
+              f"cuDNN nn.LSTM forward + backward {l_ms:.3f} ms", flush=True)
+        if layer == "pblstm1":
+            with torch.no_grad():
+                alt = {r: cuda_ms(torch, lambda: klstm.lstm_bwd(gx, whh, lengths, y, cs, dy, rev,
+                                                                 route=(route[0], r)))
+                       for r in klstm.TILE_ROWS}
+                old = cuda_ms(torch, lambda: klstm.lstm_bwd(gx, whh, lengths, y, cs, dy, rev,
+                                                            route=(0, 0)))
+            print(f"lstm_bwd {layer}: tiles of "
+                  + ", ".join(f"{r} rows {ms_r:.3f} ms" for r, ms_r in alt.items())
+                  + f"; the streaming route {old:.3f} ms", flush=True)
         err_max = max(err_max, err)
         ms += k_ms
         plain_ms += p_ms
@@ -923,6 +968,29 @@ def check_lstm_bwd(torch, rng, asr_tree):
         # the gate recompute, dgates @ W_hh^T and the dW_hh product, then the cell's adjoint
         ops += 2 * T * TRAIN_B * (3 * 8.0 * H * H + 40 * H)
         moved += nbytes(gx, whh, lengths, y, cs, dy, *got)
+    # the other routes: a small cluster, and a shape that no cluster serves
+    for Hn, T, Bn in ((128, 64, 13), (384, 32, 9)):
+        whh = torch.from_numpy((rng.standard_normal((2, Hn, 4 * Hn)) / np.sqrt(Hn))
+                               .astype("float32")).to(DEVICE)
+        gx, dy, lengths = operands(whh, T, Bn)
+        r = klstm.lstm_bwd_route(Hn, Bn, 2)
+        with torch.no_grad():
+            y, cs = klstm.lstm_fwd(gx, whh, lengths, rev)
+            before = klstm.LAUNCHES["lstm_bwd_cluster"]
+            got = klstm.lstm_bwd(gx, whh, lengths, y, cs, dy, rev)
+            torch.cuda.synchronize()
+            took = klstm.LAUNCHES["lstm_bwd_cluster"] - before
+            want = plain(gx, whh, lengths, y, cs, dy, rev)
+            ref = plain(*(t.double() for t in (gx, whh)), lengths,
+                        *(t.double() for t in (y, cs, dy)), rev)
+            tag = f"cluster of {r[0]}, tiles of {r[1]} rows" if r[0] else "streaming route"
+            for name, g, w, r64 in zip(("dgx", "dW_hh"), got, want, ref):
+                anchored(torch, f"lstm_bwd H={Hn} T={T} B={Bn} ({tag}) {name}", g, w, r64)
+            k_ms = cuda_ms(torch, lambda: klstm.lstm_bwd(gx, whh, lengths, y, cs, dy, rev))
+        print(f"lstm_bwd H={Hn} T={T} B={Bn} ({tag}): kernel {k_ms:.3f} ms", flush=True)
+        if took != (1 if r[0] else 0) or (Hn == 384) != (r[0] == 0):
+            fail(f"lstm_bwd H={Hn}: route {r}, cluster launches {took}")
+        err_max = max(err_max, float((got[0] - want[0]).abs().max()))
     b_ms, b_by = bound(ops, moved)
     return {"max_abs_err": err_max, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": b_ms, "bound_by": b_by}
@@ -943,7 +1011,7 @@ def check_spell_bwd(torch, rng, model):
     res = {"max_abs_err": 0.0}
     for tf in (0.9, 1.0):
         g = torch.Generator().manual_seed(SEED)
-        tf_draws, gumbel = las.draw_scheduled_sampling(L, Bs, tf, model.cfg, g, DEVICE)
+        tf_draws, gumbel = las.draw_scheduled_sampling(L, Bs, tf, model.cfg, g, device=DEVICE)
         ids = torch.randint(0, VOCAB_SIZE, (L, Bs), generator=g).to(DEVICE)
         dlogits = torch.randn(L, Bs, VOCAB_SIZE, generator=g).to(DEVICE) / Bs
         daext = (torch.randn(L, Bs, S, generator=g).to(DEVICE) / Bs if tf == 1.0
@@ -981,6 +1049,7 @@ FBANK_LIN_TOL = 1e-5  # ... and every energy, linear domain, relative to the row
 POOL_TOL = 2e-2  # a gradient behind max-pools: relative L2 where a near-tied window flipped
 TONE_FLOOR_DB = 30.0  # the log-domain floor on the pure-tone corpus, which has no noise floor
 PEAK_F32 = 67e12  # H100 SXM, float32 outside the tensor cores, FLOP/s
+PEAK_TF32 = 495e12  # H100 SXM, TF32 on the tensor cores, dense, FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM, device memory, bytes/s
 
 
@@ -1095,18 +1164,26 @@ def check_fbank(torch, rng, sigs, stream_sig):
             k_ms = cuda_ms(torch, lambda: kfe.fbank(*args, wil), reps=9)
             p_ms = cuda_ms(torch, lambda: kfe.fbank_plain(*args), reps=9)
         n_bins, n_mels = mel.shape
-        ops = buf.shape[0] * nf * (2 * n_fft * 2 * n_bins + 3 * n_bins + 2 * n_bins * n_mels)
-        b_ms, b_by = bound(ops, nbytes(yp, wbasis, mel, got))
+        # the DFT product runs on the tensor cores (as 3xTF32: issued three times, counted
+        # once); the power and the mel product are float32 FMAs
+        dft = buf.shape[0] * nf * 2.0 * n_fft * 2 * n_bins
+        rest = buf.shape[0] * nf * (3.0 * n_bins + 2 * n_bins * n_mels)
+        moved = nbytes(yp, wbasis, mel, got)
+        b_ms = max(dft / PEAK_TF32 * 1e3 + rest / PEAK_F32 * 1e3, moved / PEAK_BYTES * 1e3)
+        b_by = "operations" if b_ms > moved / PEAK_BYTES * 1e3 else "bytes"
+        f32_ms = bound(dft + rest, moved)[0]
         print(f"fbank {name} B={buf.shape[0]} nf={nf} sr={sr} ({int(valid.sum())} valid frames): "
               f"log max_abs_err {log_err:.3e} (energies within {FBANK_FLOOR_DB:.0f} dB of the "
               f"frame's peak), linear err {lin_err:.3e} of the row's largest; kernel {k_ms:.3f} ms "
-              f"plain (two-matmul pipeline) {p_ms:.3f} ms bound {b_ms:.4f} ms ({b_by})", flush=True)
+              f"plain (two-matmul pipeline) {p_ms:.3f} ms bound {b_ms:.4f} ms ({b_by}; the DFT at "
+              f"the TF32 tensor-core rate; {f32_ms:.4f} ms at the float32 FMA rate)", flush=True)
         if not (log_err <= FBANK_LOG_TOL and lin_err <= FBANK_LIN_TOL):
             fail(f"fbank {name}: log err {log_err} > {FBANK_LOG_TOL} or linear err {lin_err} > "
                  f"{FBANK_LIN_TOL}")
         res["max_abs_err"] = max(res["max_abs_err"], log_err)
         if name == "train":
-            res.update(ms=k_ms, plain_ms=p_ms, library_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+            res.update(ms=k_ms, plain_ms=p_ms, library_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                       bound_f32_ms=f32_ms)
 
     # one block of the streaming frontend: a [1, block] chunk of the padded stream
     sfe = fe.StreamingFrontend(SR, device=DEVICE)
@@ -1120,8 +1197,10 @@ def check_fbank(torch, rng, sigs, stream_sig):
         want = kfe.fbank_plain(chunk, wbasis, mel, nf, n_fft, hop)
         log_err, lin_err = fbank_errors(torch, got, want)
         k_ms = cuda_ms(torch, lambda: kfe.fbank(chunk, wbasis, mel, nf, n_fft, hop, wil), reps=9)
+        p_ms = cuda_ms(torch, lambda: kfe.fbank_plain(chunk, wbasis, mel, nf, n_fft, hop), reps=9)
     print(f"fbank stream block {sfe.block} samples nf={nf}: log max_abs_err {log_err:.3e}, linear "
-          f"err {lin_err:.3e}; kernel {k_ms:.3f} ms", flush=True)
+          f"err {lin_err:.3e}; kernel {k_ms:.3f} ms plain (two-matmul pipeline) {p_ms:.3f} ms",
+          flush=True)
     if not (log_err <= FBANK_LOG_TOL and lin_err <= FBANK_LIN_TOL):
         fail(f"fbank stream block: log err {log_err}, linear err {lin_err}")
     res["max_abs_err"] = max(res["max_abs_err"], log_err)
@@ -1189,7 +1268,9 @@ def profile_steps(torch, step, n):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    groups = {"lstm_fwd (K2)": "lstm_fwd_kernel", "lstm_bwd (K3)": "lstm_bwd_kernel",
+    groups = {"lstm_fwd (K2)": "lstm_fwd_kernel", "lstm_bwd (K3)": "lstm_bwd_",
+              "greedy_decode (K6 / K7)": "greedy_decode_kernel",
+              "beam_decode (K8)": "beam_decode_kernel",
               "spell_fwd (K9)": "spell_fwd_kernel", "spell_bwd (K10)": "spell_bwd_kernel",
               "fbank (K11)": "fbank_kernel"}
     split, spans = {}, []
@@ -1244,7 +1325,7 @@ def check_train_step(torch, rng, config, asr_tree, tmp):
     # (the same draws: each trainer's generator starts from the same seed)
     L = y.shape[1] - 1
     tf_draws, gumbel = las.draw_scheduled_sampling(L, TRAIN_B, ref.cfg.tf_rate, ref.cfg,
-                                                   ref.generator)
+                                                   ref.generator, device="cpu")
     m64, y_cpu = ref.model.double(), y.cpu()
     logits = las.asr_forward(m64, x.cpu().double(), x_lens.cpu(), L, teacher=y_cpu,
                              tf_draws=tf_draws, gumbel=gumbel)[1]
@@ -1298,6 +1379,9 @@ def check_train_step(torch, rng, config, asr_tree, tmp):
     for name in ("fbank", "lstm_fwd", "lstm_bwd", "spell_fwd", "spell_bwd"):
         if launches[name] < 1:
             fail(f"train step: launched {name} {launches[name]} times")
+    if launches["lstm_bwd_cluster"] != launches["lstm_bwd"]:
+        fail(f"train step: {launches['lstm_bwd_cluster']} of {launches['lstm_bwd']} lstm_bwd "
+             f"launches took the cluster route")
     if not all(bool(torch.isfinite(v)) for v in losses):
         fail("train step: a non-finite loss")
     profile_steps(torch, step, 3)
@@ -1547,6 +1631,9 @@ def timed_steps(torch, tag, trainer, optims, step, batch, need):
     for name in need:
         if launches[name] < 1:
             fail(f"{tag}: launched {name} {launches[name]} times")
+    if "lstm_bwd" in need and launches["lstm_bwd_cluster"] != launches["lstm_bwd"]:
+        fail(f"{tag}: {launches['lstm_bwd_cluster']} of {launches['lstm_bwd']} lstm_bwd launches "
+             f"took the cluster route")
     profile_steps(torch, step, 2)
     return launches
 
@@ -1817,6 +1904,7 @@ def main() -> None:
         check_cli_seed(config, idx, tmp)
     # each kernel's launches on the serving and training paths, every path counted on its own
     counts = {name: sum(ls[name] for ls in launches.values()) for name in results}
+    cluster_launches = sum(ls.get("lstm_bwd_cluster", 0) for ls in launches.values())
 
     replaces = {"lstm_fwd": ("lstm_fwd.cu", "ss_asr_tpu/ops/pallas/lstm.py:149"),
                 "greedy_decode": ("greedy_decode.cu", "ss_asr_tpu/ops/pallas/decode.py:33"),
@@ -1834,7 +1922,10 @@ def main() -> None:
                 "max_abs_err": results[name]["max_abs_err"], "ms": results[name]["ms"],
                 "plain_ms": results[name]["plain_ms"], "bound_ms": results[name]["bound_ms"],
                 "bound_by": results[name]["bound_by"], "library_ms": results[name]["library_ms"],
-                **({"also_replaces": covers[name]} if name in covers else {})}
+                **({"also_replaces": covers[name]} if name in covers else {}),
+                **({"bound_f32_ms": results[name]["bound_f32_ms"]}
+                   if "bound_f32_ms" in results[name] else {}),
+                **({"cluster_launches": cluster_launches} if name == "lstm_bwd" else {})}
                for name, (src, rep) in replaces.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

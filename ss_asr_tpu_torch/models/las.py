@@ -148,13 +148,14 @@ def speller_step(p: Speller, x: torch.Tensor, state) -> tuple:
 
 def draw_scheduled_sampling(
     decode_step: int, batch: int, tf_rate: float, cfg: ASRConfig,
-    generator: Optional[torch.Generator] = None, device="cpu",
+    generator: Optional[torch.Generator] = None, *, device,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The random numbers of one scheduled-sampling unroll, as the JAX
     package draws them outside its kernel (ops/pallas/spell.py:750-753):
     ``tf_draws [L]`` float 0/1, one Bernoulli(tf_rate) draw per step shared
     by the batch, and Gumbel noise ``gumbel [L, B, V]`` for the sampling
-    argmax.  ``torch.Generator`` streams differ from ``jax.random``'s."""
+    argmax, drawn on the host and moved to ``device`` (required).
+    ``torch.Generator`` streams differ from ``jax.random``'s."""
     tf_draws = (torch.rand(decode_step, generator=generator) <= tf_rate).to(torch.float32)
     u = torch.rand(decode_step, batch, cfg.vocab_size, generator=generator)
     u = u.clamp(min=torch.finfo(torch.float32).tiny)  # JAX draws from [tiny, 1)

@@ -191,8 +191,9 @@ def log_mel_fbank(
     return fb[0]
 
 
-def compute_fbank(y: np.ndarray, sr: int, n_mels: int = N_DIMS, device="cpu") -> np.ndarray:
-    """One signal -> ``[T, n_mels]`` float32 numpy array."""
+def compute_fbank(y: np.ndarray, sr: int, n_mels: int = N_DIMS, *, device) -> np.ndarray:
+    """One signal -> ``[T, n_mels]`` float32 numpy array, computed on ``device``
+    (required: only a caller who asks for the CPU computes there)."""
     buf = torch.as_tensor(np.asarray(y, np.float32), device=device)
     return log_mel_fbank(buf, sr, n_mels).cpu().numpy()
 
@@ -204,7 +205,7 @@ class StreamingFrontend:
     ``center=True``'s start reflect-padding is built once enough samples
     have arrived, the end padding at ``close()``, and ``n_fft - hop``
     samples of context carry across chunks.  Samples are framed in
-    ``block``-sized windows, as in JAX; ``fbank`` runs on ``device``.
+    ``block``-sized windows, as in JAX; ``fbank`` runs on ``device`` (required).
 
         fe = StreamingFrontend(sr=16000, device="cuda")
         for chunk in audio_chunks:
@@ -213,7 +214,7 @@ class StreamingFrontend:
     """
 
     def __init__(self, sr: int, n_mels: int = N_DIMS, win_ms: int = WIN_MS,
-                 stride_ms: int = STRIDE_MS, block: int = 16000, device="cpu"):
+                 stride_ms: int = STRIDE_MS, block: int = 16000, *, device):
         self.sr, self.n_mels = sr, n_mels
         self.win_ms, self.stride_ms = win_ms, stride_ms
         self.device = torch.device(device)
@@ -276,11 +277,12 @@ class StreamingFrontend:
 
 
 def log_mel_fbank_ragged(
-    sigs: Sequence[np.ndarray], sr: int, n_mels: int = N_DIMS, min_rows: int = 1, device="cpu"
+    sigs: Sequence[np.ndarray], sr: int, n_mels: int = N_DIMS, min_rows: int = 1, *, device
 ) -> List[np.ndarray]:
     """Frontend over a ragged list of signals, padded into one buffer on a
     half-second grid with at least ``min_rows`` rows (padded rows carry one
-    sample; their output is dropped).  Returns ``[T_i, n_mels]`` arrays."""
+    sample; their output is dropped), computed on ``device`` (required).
+    Returns ``[T_i, n_mels]`` arrays."""
     if not sigs:
         return []
     step = max(sr // 2, 1)

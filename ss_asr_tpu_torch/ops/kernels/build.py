@@ -43,8 +43,11 @@ _I = ctypes.c_int
 SIGNATURES = {
     # gx, whh, lengths, y, cs, D, T, B, H, rev_bits, device, stream
     "ss_lstm_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint, _I, _P],
-    # gx, whh, lengths, y, cs, dy, dgx, D, T, B, H, rev_bits, device, stream
-    "ss_lstm_bwd": [_P] * 7 + [_I] * 4 + [ctypes.c_uint, _I, _P],
+    # gx, whh, lengths, y, cs, dy, dgx, D, T, B, H, rev_bits, cluster, rows,
+    # device, stream
+    "ss_lstm_bwd": [_P] * 7 + [_I] * 4 + [ctypes.c_uint, _I, _I, _I, _P],
+    # H, cluster, rows, device, resident (int*)
+    "ss_lstm_bwd_resident_clusters": [_I, _I, _I, _I, _P],
     # enc, comp, lens, phi, wih1, whh1, b1, wih2, whh2, b2, ct_w, ct_b, emb,
     # out, B, S, F, M, H, V, max_steps, device, stream
     "ss_greedy_decode": [_P] * 14 + [_I] * 8 + [_P],
@@ -64,9 +67,9 @@ SIGNATURES = {
     # weights less ct_b, dg1, dg2, de, dqp, demb, B, S, F, M, H, V, L, device,
     # stream
     "ss_spell_bwd": [_P] * 24 + [_I] * 7 + [_I, _P],
-    # yp, wbasis_il, mel, out, B, Np, nf, n_fft, hop, n_bins, ncols, n_mels,
-    # log_eps, device, stream
-    "ss_fbank": [_P] * 4 + [_I] * 8 + [ctypes.c_float, _I, _P],
+    # yp, wbasis_il, mel, out, B, Np, nf, n_fft, hop, n_bins, kpad, ncols,
+    # n_mels, log_eps, device, stream
+    "ss_fbank": [_P] * 4 + [_I] * 9 + [ctypes.c_float, _I, _P],
 }
 
 

@@ -41,16 +41,25 @@ def fbank_plain(yp: torch.Tensor, wbasis: torch.Tensor, mel: torch.Tensor,
     return torch.log(torch.matmul(power, mel) + LOG_EPS)
 
 
+#: the kernel's tensor-core tile: K steps of 8 rows, column chunks of 96
+K_STEP = 8
+COL_CHUNK = 96
+
+
 def interleave_basis(wbasis: torch.Tensor) -> torch.Tensor:
     """The kernel's layout of the basis: column 2j holds bin j's cos column,
-    2j+1 its -sin column (so one thread squares re and im of a bin in
-    registers), zero-padded to a multiple of 4 columns (float4 loads)."""
+    2j+1 its -sin column (the two adjacent columns of a tensor-core
+    accumulator fragment are then re and im of one bin, squared in
+    registers), with zero rows up to a multiple of ``K_STEP`` (the depth of
+    one ``mma``) and zero columns up to a multiple of ``COL_CHUNK`` (the
+    kernel walks the columns in chunks and guards none)."""
     n_fft, two_bins = wbasis.shape
     n_bins = two_bins // 2
-    ncols = -(-two_bins // 4) * 4
-    out = wbasis.new_zeros(n_fft, ncols)
-    out[:, 0:two_bins:2] = wbasis[:, :n_bins]
-    out[:, 1:two_bins:2] = wbasis[:, n_bins:]
+    kpad = -(-n_fft // K_STEP) * K_STEP
+    ncols = -(-two_bins // COL_CHUNK) * COL_CHUNK
+    out = wbasis.new_zeros(kpad, ncols)
+    out[:n_fft, 0:two_bins:2] = wbasis[:, :n_bins]
+    out[:n_fft, 1:two_bins:2] = wbasis[:, n_bins:]
     return out
 
 
@@ -78,17 +87,21 @@ def fbank(yp: torch.Tensor, wbasis: torch.Tensor, mel: torch.Tensor, nf: int, n_
     for key, t in (("yp", yp), ("wbasis_il", wbasis_il), ("mel", mel)):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != yp.device:
             raise ValueError(f"fbank: {key} must be contiguous float32 on {yp.device}")
-    ncols = wbasis_il.shape[1]
-    if wbasis_il.shape[0] != n_fft or ncols % 4 or ncols < 2 * n_bins:
+    kpad, ncols = wbasis_il.shape
+    if kpad % K_STEP or not n_fft <= kpad < n_fft + K_STEP or ncols % COL_CHUNK \
+            or ncols < 2 * n_bins:
         raise ValueError(f"fbank: wbasis_il {tuple(wbasis_il.shape)} is not the "
                          f"interleaved basis of {tuple(wbasis.shape)}")
     out = torch.empty(B, nf, n_mels, device=yp.device, dtype=torch.float32)
     if B == 0 or nf == 0:
         return out
+    if kpad > 4 * hop or n_mels > 64:
+        raise ValueError(f"fbank: the kernel takes windows of at most 4 hops and at most 64 mel "
+                         f"bands, not n_fft={n_fft}, hop={hop}, n_mels={n_mels}")
     lib = build.load_library()
     err = lib.ss_fbank(
         yp.data_ptr(), wbasis_il.data_ptr(), mel.data_ptr(), out.data_ptr(),
-        B, Np, nf, n_fft, hop, n_bins, ncols, n_mels, LOG_EPS, yp.device.index or 0,
+        B, Np, nf, n_fft, hop, n_bins, kpad, ncols, n_mels, LOG_EPS, yp.device.index or 0,
         torch.cuda.current_stream(yp.device).cuda_stream,
     )
     build.check(err, "ss_fbank")

@@ -20,14 +20,67 @@ direct ``lstm_fwd`` call on CUDA tensors that need a gradient raises.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ss_asr_tpu_torch.ops.kernels import build
 
-#: kernel launches made by ``lstm_fwd`` / ``lstm_bwd`` (one per call on CUDA tensors)
-LAUNCHES = {"lstm_fwd": 0, "lstm_bwd": 0}
+#: kernel launches made by ``lstm_fwd`` / ``lstm_bwd`` (one per call on CUDA
+#: tensors); ``lstm_bwd_cluster`` counts those of ``lstm_bwd`` that took the
+#: cluster route
+LAUNCHES = {"lstm_fwd": 0, "lstm_bwd": 0, "lstm_bwd_cluster": 0}
+
+#: what the cluster route of ``csrc/lstm_bwd.cu`` is sized by: the shared
+#: memory a block can use on an H100 (bytes), the cluster sizes and the tile
+#: heights (batch rows a cluster) it is written for, and the clusters of each
+#: size that an H100 SXM (132 SMs, a CTA of this kernel fills one) holds at
+#: once, as ``cudaOccupancyMaxActiveClusters`` counts them
+#: (``resident_clusters``)
+SMEM_BYTES = 227 * 1024
+CLUSTER_SIZES = (1, 2, 4, 8)
+TILE_ROWS = (4, 5, 6, 8)
+CARD_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15}
+
+
+def cluster_smem_bytes(H: int, C: int, R: int) -> int:
+    """Shared memory of one CTA of the cluster route (``cluster_plan`` in
+    ``csrc/lstm_bwd.cu``): the resident ``[H, 4H/C]`` slice of ``W_hh`` at a
+    row pitch of 4H/C + 4, double-buffered step operands (h_p, gx, c_t, c_p,
+    dy), the dc carry, dgates, the partial gate sums (4 pairs of k-slices),
+    the CTA's partial of the carry and the double-buffered reduce-scatter
+    slots."""
+    Hc = H // C
+    LC = 4 * Hc
+    floats = (H * (LC + 4) + 2 * R * H + 2 * R * LC + 3 * 2 * R * Hc + R * Hc + R * LC
+              + 4 * R * LC + R * H + 2 * C * R * Hc + R)
+    return 4 * floats
+
+
+def cluster_serves(H: int, C: int, R: int = 8) -> bool:
+    """Whether a cluster of C CTAs with tiles of R rows serves hidden size H:
+    each CTA's H/C units a whole number of warps, H a multiple of 64 (the
+    carry product gives a thread 8 units and a warp 8 such threads), and the
+    slice and the buffers inside one block's shared memory."""
+    return (C in CLUSTER_SIZES and R in TILE_ROWS and H % C == 0 and H // C > 0
+            and (H // C) % 32 == 0 and H % 64 == 0
+            and cluster_smem_bytes(H, C, R) <= SMEM_BYTES)
+
+
+def lstm_bwd_route(H: int, B: int, D: int) -> Tuple[int, int]:
+    """The route of ``lstm_bwd`` on the card, from the shape alone ->
+    ``(C, R)``: a thread-block cluster of C CTAs per (direction, tile of R
+    batch rows) with ``W_hh`` resident in shared memory, C the smallest of 1,
+    2, 4, 8 that serves H; or ``(0, 0)``, the streaming kernel, where none
+    does (H / C not a multiple of 32, or H above about 350).  R is the
+    smallest of 4, 5, 6, 8 whose clusters are all resident at once on the
+    card (a step's time grows with R, but a second wave doubles it): the
+    flagship's B = 32 takes tiles of 5 rows, 14 clusters where 15 fit."""
+    for C in CLUSTER_SIZES:
+        if cluster_serves(H, C):
+            fit = [R for R in TILE_ROWS if -(-B // R) * D <= CARD_CLUSTERS[C]]
+            return C, (fit[0] if fit else TILE_ROWS[-1])
+    return 0, 0
 
 
 def lstm_seq_plain(
@@ -157,15 +210,35 @@ def lstm_fwd(
     return y, cs
 
 
+def resident_clusters(H: int, C: int, R: int, device: torch.device) -> int:
+    """How many clusters of the cluster route the card holds at once
+    (``cudaOccupancyMaxActiveClusters``): what ``CARD_CLUSTERS`` records."""
+    import ctypes
+
+    if not cluster_serves(H, C, R):
+        raise ValueError(f"resident_clusters: no cluster of {C} CTAs with tiles of {R} rows "
+                         f"serves H={H}")
+    n = ctypes.c_int(0)
+    lib = build.load_library()
+    err = lib.ss_lstm_bwd_resident_clusters(
+        H, C, R, torch.device(device).index or 0, ctypes.addressof(n))
+    build.check(err, "ss_lstm_bwd_resident_clusters")
+    return n.value
+
+
 def lstm_bwd(
     gx: torch.Tensor, whh: torch.Tensor, lengths: torch.Tensor, y: torch.Tensor,
     cs: torch.Tensor, dy: torch.Tensor, reverse: Sequence[bool],
+    route: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Adjoint of ``lstm_fwd`` for D directions -> ``(dgx [D, T, B, 4H],
     dwhh [D, H, 4H])``.  y, cs are ``lstm_fwd``'s outputs, dy [D, T, B, H]
     the cotangent of y.  dgx comes from the kernel (or its plain version);
     dwhh = sum_t h_prev_t^T dgates_t is one batched product over shifted
-    views of y, outside the kernel (``ops/pallas/lstm.py:589-596``)."""
+    views of y, outside the kernel (``ops/pallas/lstm.py:589-596``).
+    On the card ``lstm_bwd_route`` picks the kernel's route from the shape;
+    ``route=(C, R)`` asks for one that serves the shape instead (the tests
+    hold every cluster size), ``(0, 0)`` for the streaming kernel."""
     _check("lstm_bwd", gx, whh, lengths, reverse)
     D, T, B, G = gx.shape
     H = G // 4
@@ -180,16 +253,22 @@ def lstm_bwd(
         _operands("lstm_bwd", gx.device, gx=gx, whh=whh, y=y, cs=cs, dy=dy)
         lengths = lengths.to(device=gx.device, dtype=torch.int32).contiguous()
         dgx = torch.empty_like(gx)
+        C, R = lstm_bwd_route(H, B, D) if route is None else route
+        if C and not cluster_serves(H, C, R):
+            raise ValueError(f"lstm_bwd: no cluster of {C} CTAs with tiles of {R} rows serves "
+                             f"H={H}")
         if T > 0 and B > 0:
             lib = build.load_library()
             rev_bits = sum(1 << d for d in range(D) if reverse[d])
             err = lib.ss_lstm_bwd(
                 gx.data_ptr(), whh.data_ptr(), lengths.data_ptr(), y.data_ptr(), cs.data_ptr(),
-                dy.data_ptr(), dgx.data_ptr(), D, T, B, H, rev_bits, gx.device.index or 0,
-                torch.cuda.current_stream(gx.device).cuda_stream,
+                dy.data_ptr(), dgx.data_ptr(), D, T, B, H, rev_bits, C, R,
+                gx.device.index or 0, torch.cuda.current_stream(gx.device).cuda_stream,
             )
             build.check(err, "ss_lstm_bwd")
             build.count_launch(LAUNCHES, "lstm_bwd")
+            if C:
+                build.count_launch(LAUNCHES, "lstm_bwd_cluster")
     dwhh = torch.stack([torch.einsum("tbh,tbg->hg", predecessors(y[d], reverse[d]), dgx[d])
                         for d in range(D)])
     return dgx, dwhh

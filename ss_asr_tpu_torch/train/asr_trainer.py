@@ -92,7 +92,7 @@ class ASRTrainer(Solver):
         logits), both detached."""
         L = y.shape[1] - 1
         tf_draws, gumbel = las.draw_scheduled_sampling(L, y.shape[0], self.cfg.tf_rate, self.cfg,
-                                                       self.generator, self.device)
+                                                       self.generator, device=self.device)
         self.model.zero_grad(set_to_none=True)
         _, logits, _ = las.asr_forward(self.model, x, x_lens, L, teacher=y, tf_draws=tf_draws,
                                        gumbel=gumbel)

@@ -76,7 +76,8 @@ class TAETrainer(Solver):
         L = y.shape[1]
         if tf_draws is None:
             tf_draws, gumbel = las.draw_scheduled_sampling(
-                L, y.shape[0], self.asr_cfg.tf_rate, self.asr_cfg, self.generator, self.device)
+                L, y.shape[0], self.asr_cfg.tf_rate, self.asr_cfg, self.generator,
+                device=self.device)
         teacher = F.pad(y, (0, 1))  # a pad column so that teacher[t + 1] exists
         _, logits = tae_mod.tae_forward(self.models["asr"], self.models["tae"], teacher, y_noised,
                                         noise_lens, L, tf_draws, gumbel)

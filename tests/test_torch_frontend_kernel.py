@@ -72,12 +72,14 @@ def test_fbank_plain_matches_fbank_pallas_on_the_same_padded_signal(rng, nf):
 def test_interleaved_basis_layout():
     wb = torch.arange(3 * 6, dtype=torch.float32).reshape(3, 6)  # 3 bins: cos 0-2 | -sin 3-5
     il = kfe.interleave_basis(wb)
-    assert il.shape == (3, 8) and il.is_contiguous()
-    np.testing.assert_array_equal(il[0].numpy(), [0, 3, 1, 4, 2, 5, 0, 0])
+    assert il.shape == (kfe.K_STEP, kfe.COL_CHUNK) and il.is_contiguous()
+    np.testing.assert_array_equal(il[0, :8].numpy(), [0, 3, 1, 4, 2, 5, 0, 0])
+    assert not il[3:].any() and not il[:, 6:].any()
     for sr in (8000, 16000, 22050):
         n_fft, _ = fe.frame_params(sr)
         full = kfe.interleave_basis(torch.from_numpy(fe._windowed_dft_basis(n_fft)))
-        assert full.shape[1] % 4 == 0 and full.shape[1] >= 2 * (1 + n_fft // 2)
+        assert full.shape[1] % kfe.COL_CHUNK == 0 and full.shape[1] >= 2 * (1 + n_fft // 2)
+        assert full.shape[0] % kfe.K_STEP == 0 and n_fft <= full.shape[0] < n_fft + kfe.K_STEP
 
 
 def test_fbank_refuses_shapes_that_do_not_fit():
@@ -94,14 +96,14 @@ def test_fbank_refuses_shapes_that_do_not_fit():
                                         (8000, 90, 40)])
 def test_streaming_frontend_equals_the_one_shot_and_jax(rng, sr, n, chunk):
     y = (0.3 * rng.standard_normal(n)).astype(np.float32)
-    sfe, jsfe = fe.StreamingFrontend(sr), jfe.StreamingFrontend(sr)
+    sfe, jsfe = fe.StreamingFrontend(sr, device="cpu"), jfe.StreamingFrontend(sr)
     got, want = [], []
     for i in range(0, n, chunk):
         got.append(sfe.push(y[i : i + chunk]))
         want.append(jsfe.push(y[i : i + chunk]))
         assert got[-1].shape == want[-1].shape
     got, want = np.concatenate(got + [sfe.close()]), np.concatenate(want + [jsfe.close()])
-    one_shot = fe.compute_fbank(y, sr)
+    one_shot = fe.compute_fbank(y, sr, device="cpu")
     assert got.shape == want.shape == one_shot.shape
     assert_logmel_close(got, want)
     assert_logmel_close(got, one_shot)

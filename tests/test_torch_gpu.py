@@ -163,7 +163,7 @@ def test_streaming_frontend_on_the_card_launches_the_kernel(cuda):
     sfe = frontend.StreamingFrontend(16000, device=cuda)
     frames = np.concatenate([sfe.push(c) for c in np.array_split(y, 7)] + [sfe.close()], 0)
     assert kfe.LAUNCHES["fbank"] > before
-    want = frontend.compute_fbank(y, 16000)
+    want = frontend.compute_fbank(y, 16000, device="cpu")
     assert frames.shape == want.shape
     log_err, lin_err = fbank_errors(torch, torch.from_numpy(frames), torch.from_numpy(want))
     assert log_err <= FBANK_LOG_TOL and lin_err <= FBANK_LIN_TOL
@@ -301,7 +301,7 @@ def test_spell_fwd_matches_plain(cuda, tf, sizes):
         tf_draws = torch.zeros(L, device=cuda)
         gumbel = torch.zeros(L, B, VOCAB_SIZE, device=cuda)
     else:
-        tf_draws, gumbel = las.draw_scheduled_sampling(L, B, tf, cfg, g, cuda)
+        tf_draws, gumbel = las.draw_scheduled_sampling(L, B, tf, cfg, g, device=cuda)
     ids = torch.randint(0, VOCAB_SIZE, (L, B), generator=g).to(cuda)
     with torch.inference_mode():
         enc_h, comp_h, enc_lens = _memory(model, np.random.default_rng(5), cuda, B=B)
@@ -362,6 +362,92 @@ def test_lstm_bwd_matches_plain(cuda, D, reverse, T, B, H):
         torch.testing.assert_close(dwhh[d], want_w, atol=1e-4, rtol=1e-5)
 
 
+@pytest.mark.parametrize("D,reverse", [(1, (False,)), (1, (True,)), (2, (False, True))])
+@pytest.mark.parametrize("H,route,T,B", [
+    (64, (1, 8), 13, 5), (64, (2, 4), 9, 11), (128, (2, 8), 7, 17), (128, (4, 4), 11, 6),
+    (256, (8, 8), 9, 13), (256, (8, 4), 12, 7), (256, (8, 5), 10, 12), (128, (4, 6), 8, 13),
+    (64, (1, 4), 1, 1),
+    (384, (0, 0), 6, 5), (256, (0, 0), 5, 3),
+], ids=lambda v: str(v).replace(" ", ""))
+def test_lstm_bwd_routes_match_plain(cuda, D, reverse, H, route, T, B):
+    """K3 on the cluster route at C = 1, 2, 4, 8 with tiles of 4 and 8 rows,
+    and on the streaming route: B not a multiple of the tile, lengths 0 and
+    1, both directions and one alone; dgx and dW_hh against the plain
+    version, the route's counter, and a second run bit-equal to the first
+    (the reduce-scatter adds its slots in a fixed order)."""
+    rng = np.random.default_rng(T * B + H + 1)
+    gx = torch.from_numpy(rng.standard_normal((D, T, B, 4 * H)).astype(np.float32)).to(cuda)
+    whh = torch.from_numpy((rng.standard_normal((D, H, 4 * H)) / np.sqrt(H)).astype(np.float32))
+    whh = whh.to(cuda)
+    dy = torch.from_numpy(rng.standard_normal((D, T, B, H)).astype(np.float32)).to(cuda)
+    lens = rng.integers(0, T + 1, size=B)
+    lens[: min(B, 2)] = (0, 1)[: min(B, 2)]
+    if B > 2:
+        lens[2] = T
+    lengths = torch.from_numpy(lens.astype(np.int32)).to(cuda)
+    y, cs = klstm.lstm_fwd(gx, whh, lengths, reverse)
+    before = dict(klstm.LAUNCHES)
+    dgx, dwhh = klstm.lstm_bwd(gx, whh, lengths, y, cs, dy, reverse, route=route)
+    torch.cuda.synchronize()
+    assert klstm.LAUNCHES["lstm_bwd"] == before["lstm_bwd"] + 1
+    assert klstm.LAUNCHES["lstm_bwd_cluster"] == before["lstm_bwd_cluster"] + (route[0] > 0)
+    for d in range(D):
+        want = klstm.lstm_bwd_plain(gx[d], whh[d], lengths, y[d], cs[d], dy[d], reverse[d])
+        torch.testing.assert_close(dgx[d], want, atol=1e-5, rtol=0)
+        want_w = torch.einsum("tbh,tbg->hg", klstm.predecessors(y[d], reverse[d]), want)
+        torch.testing.assert_close(dwhh[d], want_w, atol=1e-4, rtol=1e-5)
+    again = klstm.lstm_bwd(gx, whh, lengths, y, cs, dy, reverse, route=route)
+    assert torch.equal(again[0], dgx) and torch.equal(again[1], dwhh)
+
+
+def test_lstm_bwd_takes_the_route_of_its_shape_and_refuses_one_that_does_not_serve(cuda):
+    H, T, B = 256, 6, 9
+    assert klstm.lstm_bwd_route(H, B, 2)[0] == 8 and klstm.lstm_bwd_route(384, B, 2) == (0, 0)
+    g = torch.Generator().manual_seed(0)
+    gx = torch.randn(2, T, B, 4 * H, generator=g).to(cuda)
+    whh = (torch.randn(2, H, 4 * H, generator=g) / 16).to(cuda)
+    dy = torch.randn(2, T, B, H, generator=g).to(cuda)
+    lengths = torch.full((B,), T, dtype=torch.int32, device=cuda)
+    y, cs = klstm.lstm_fwd(gx, whh, lengths, (False, True))
+    before = klstm.LAUNCHES["lstm_bwd_cluster"]
+    by_shape = klstm.lstm_bwd(gx, whh, lengths, y, cs, dy, (False, True))
+    assert klstm.LAUNCHES["lstm_bwd_cluster"] == before + 1
+    streamed = klstm.lstm_bwd(gx, whh, lengths, y, cs, dy, (False, True), route=(0, 0))
+    assert klstm.LAUNCHES["lstm_bwd_cluster"] == before + 1
+    torch.testing.assert_close(by_shape[0], streamed[0], atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="serves"):
+        klstm.lstm_bwd(gx, whh, lengths, y, cs, dy, (False, True), route=(4, 8))
+
+
+@pytest.mark.parametrize("sr", [16000, 22050])
+@pytest.mark.parametrize("B,n", [(1, 1), (1, 40001), (3, 20000), (70, 30011)],
+                         ids=["one-sample", "B1", "small-grid", "full-tiles"])
+def test_fbank_kernel_tiles_and_edges(cuda, sr, B, n):
+    """K11 on both tile sizes (a grid under half of the SMs takes tiles of
+    64 frames, a larger one 128), frame counts that are no multiple of
+    either, B = 1 and a one-sample row, at both sample rates."""
+    rng = np.random.default_rng(sr + B + n)
+    n_fft, hop = frontend.frame_params(sr)
+    pad = n_fft // 2
+    lens = rng.integers(1, n + 1, size=B)
+    lens[0] = n
+    buf = np.zeros((B, n), np.float32)
+    for i, k in enumerate(lens):
+        t = np.arange(k) / sr
+        buf[i, :k] = 0.2 * np.sin(2 * np.pi * 440.0 * (i + 1) * t) + 0.05 * rng.standard_normal(k)
+    yp = frontend.reflect_padded(torch.from_numpy(buf).to(cuda), torch.from_numpy(lens).to(cuda),
+                                 pad)
+    nf = int(frontend.num_frames(n, n_fft, hop))
+    wbasis, mel, wil = frontend._projections(sr, 40, 25, 10, yp.device)
+    got = kfe.fbank(yp, wbasis, mel, nf, n_fft, hop, wil)
+    torch.cuda.synchronize()
+    want = kfe.fbank_plain(yp, wbasis, mel, nf, n_fft, hop)
+    log_err, lin_err = fbank_errors(torch, got, want)
+    assert got.shape == (B, nf, 40) and bool(torch.isfinite(got).all())
+    assert log_err <= FBANK_LOG_TOL and lin_err <= FBANK_LIN_TOL
+    assert torch.equal(kfe.fbank(yp, wbasis, mel, nf, n_fft, hop, wil), got)
+
+
 @pytest.mark.parametrize("tf", [1.0, 0.5], ids=["teacher", "sampled"])
 @pytest.mark.parametrize("sizes", [
     dict(encoder_state_size=8, decoder_state_size=8, mlp_out_size=8, feature_dim=5),
@@ -374,7 +460,7 @@ def test_spell_bwd_matches_plain(cuda, tf, sizes):
     model, _ = _models(cfg, 8, 10, cuda)
     B, L = 6, 11
     g = torch.Generator().manual_seed(4)
-    tf_draws, gumbel = las.draw_scheduled_sampling(L, B, tf, cfg, g, cuda)
+    tf_draws, gumbel = las.draw_scheduled_sampling(L, B, tf, cfg, g, device=cuda)
     ids = torch.randint(0, VOCAB_SIZE, (L, B), generator=g).to(cuda)
     with torch.no_grad():
         enc_h, comp_h, enc_lens = _memory(model, np.random.default_rng(6), cuda, B=B)
@@ -414,7 +500,8 @@ def test_listener_grads_on_the_card_match_the_plain_path(cuda):
     x_lens = torch.tensor([48, 40, 17, 9], dtype=torch.int32)
     y = torch.from_numpy(rng.integers(2, VOCAB_SIZE, (4, 8))).long()
     y[:, 0] = 0
-    tf_draws, gumbel = las.draw_scheduled_sampling(7, 4, 0.5, cfg, torch.Generator().manual_seed(0))
+    tf_draws, gumbel = las.draw_scheduled_sampling(7, 4, 0.5, cfg, torch.Generator().manual_seed(0),
+                                                   device="cpu")
     out = []
     for dev in ("cpu", cuda):
         model, _ = _models(cfg, 8, 12, dev)
@@ -577,7 +664,7 @@ def test_beam_transcriber_on_the_card_matches_the_cpu(cuda):
         model, lm = _models(cfg, 8, 5, dev)
         t = Transcriber(model, lm=lm, lm_weight=0.5, beam_size=3, sr=8000, max_steps=12,
                         t_bucket=16)
-        fb = [frontend.compute_fbank(s, 8000) for s in sigs[:1]]
+        fb = [frontend.compute_fbank(s, 8000, device="cpu") for s in sigs[:1]]
         detail = t.transcribe_fbank_detailed(fb, n_best=3)[0]
         out.append((t.transcribe_signal_batch(sigs), [h.text for h in detail],
                     [h.char_frames.tolist() for h in detail]))

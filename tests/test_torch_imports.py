@@ -34,8 +34,8 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 
 #: every kernel wrapper of the port
-WRAPPERS = [klstm.lstm_fwd, klstm.lstm_bwd, kdecode.greedy_decode, kbeam.beam_device,
-            kspell.spell_fwd, kspell.spell_bwd, kfrontend.fbank]
+WRAPPERS = [klstm.lstm_fwd, klstm.lstm_bwd, klstm.resident_clusters, kdecode.greedy_decode,
+            kbeam.beam_device, kspell.spell_fwd, kspell.spell_bwd, kfrontend.fbank]
 
 
 def _modules():

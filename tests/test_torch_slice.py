@@ -199,11 +199,11 @@ def test_http_server_answers_like_the_direct_path(ckpts, rng, mode):
         if mode == "signal":
             assert texts == direct
         else:  # per-request frontend: the fbank path on the same frames
-            assert texts == pt.transcribe_fbank([compute_fbank(y, 8000) for y in read])
+            assert texts == pt.transcribe_fbank([compute_fbank(y, 8000, device="cpu") for y in read])
         assert post("/transcribe", b"not a wav")[0] == 400
 
         # detail / n-best: the direct detailed decode of the same frames
-        want = pt.transcribe_fbank_detailed(compute_fbank(read[1], 8000), n_best=3)[0]
+        want = pt.transcribe_fbank_detailed(compute_fbank(read[1], 8000, device="cpu"), n_best=3)[0]
         code, obj = post("/transcribe?detail=1&nbest=3", bodies[1])
         assert code == 200 and obj["text"] == want[0].text
         assert [h["text"] for h in obj["hypotheses"]] == [h.text for h in want]

@@ -137,8 +137,8 @@ def test_charlm_teacher_forced_unroll_matches_jax(rng, tf):
 
 def test_scheduled_sampling_draws_are_seeded():
     cfg = las.ASRConfig(**SIZES)
-    a = las.draw_scheduled_sampling(40, 3, 0.9, cfg, torch.Generator().manual_seed(1))
-    b = las.draw_scheduled_sampling(40, 3, 0.9, cfg, torch.Generator().manual_seed(1))
+    a = las.draw_scheduled_sampling(40, 3, 0.9, cfg, torch.Generator().manual_seed(1), device="cpu")
+    b = las.draw_scheduled_sampling(40, 3, 0.9, cfg, torch.Generator().manual_seed(1), device="cpu")
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert a[1].shape == (40, 3, VOCAB_SIZE) and torch.isfinite(a[1]).all()
     assert set(a[0].tolist()) <= {0.0, 1.0} and 0 < a[0].sum() < 40
