@@ -28,7 +28,11 @@ Phases, in order; any failure exits non-zero:
      candidates, replayed along the plain path).  A divergent row whose two
      candidates a float64 replay of the plain path puts within 4 float32
      ulps and within 1e-4 of each other is a float32 tie: at most 4 such
-     rows of 16, and at most 2 other near-tie rows.  Final scores within 1e-3, done flags and
+     rows of 16, and at most 2 other near-tie rows, beyond those that the
+     plain version run on the host splits from the card's plain version by
+     the same rule on the same inputs (two float32 summation orders: on
+     random weights over 200 steps at K = 8 any change of rounding splits
+     5-7 rows at float32 ties).  Final scores within 1e-3, done flags and
      lengths equal on the rows that never diverged; on every row the
      kernel's own path, replayed through the plain step, has each pick
      within 1e-3 of the step's K best and ends at the kernel's scores
@@ -98,8 +102,10 @@ Phases, in order; any failure exits non-zero:
    before and read just after (K2, K3, K9 and K10 must launch, every K3
    launch on the cluster route), and a torch.profiler split of 3 steps.
 7. ``python -m ss_asr_tpu_torch.cli.train ASRTrainer`` as a subprocess on a
-   seeded corpus of 32 utterances (40 mels, 300-512 frames, texts up to 48
-   ids): 30 steps of the one batch, whose loss must fall, writing
+   seeded corpus of 40 utterances (40 mels, 300-512 frames, texts up to 48
+   ids), split by ``data.index.make_split`` (90 / 10, seeded) into a train
+   index of one batch and a held-out validation index: 30 steps of the one
+   batch, whose loss must fall, writing
    ``asr.npz``, ``asr_opt.npz`` and ``tracker.json``; a second invocation
    resumes at step 30.
 8. Data preparation and the semi-supervised trainers: ``cli.mkdata`` and
@@ -114,7 +120,8 @@ Phases, in order; any failure exits non-zero:
    TAE, must launch, K3 on the cluster route), every parameter outside the
    optimizer's mask
    bit-unchanged and every one inside moved.  Then ``cli.train Seed`` as a
-   subprocess on the preprocessed corpus (TAE -> ADV -> SAE, the three ASR
+   subprocess on the train side of a seeded held-out split of the
+   preprocessed corpus, validating on the other (TAE -> ADV -> SAE, the three ASR
    relays written) and ``cli.train ASRTrainer`` from the last relay, whose
    loss must fall.
 9. One JSON line of kernels (launches on the paths above, error, kernel /
@@ -164,6 +171,7 @@ TRAIN_L = 48
 TRAIN_MIN_FRAMES = 300  # utterances of 300-512 frames
 TRAIN_STEPS = 12  # timed train steps (the median is reported)
 CLI_STEPS = 30  # steps of cli.train on one repeated batch
+CLI_UTTS = 40  # its corpus: a seeded 90 / 10 split leaves one batch of TRAIN_B to train on
 ANCHOR_RATIO = 4.0  # a backward kernel's error vs float64: at most 4x the plain float32's
 ANCHOR_MAX = 1e-4  # ... and at most this relative L2
 STEP_FLOOR = 1e-5  # the train step: card error vs float64 within 4x the CPU's, or below this
@@ -202,24 +210,51 @@ def nvidia_smi() -> str:
 
 
 def check_lstm(torch, rng, asr_tree):
+    """K2 against lstm_seq_plain on the four listener layers' shapes (B = 16,
+    both directions, ragged lengths including 0 and 1), on the cluster route
+    (its launch counter must say so), two runs bit-equal; the first layer
+    timed at every tile height and on the streaming route, and the TAE's
+    text-encoder shape (B = 64, T = 48: 16 clusters where the card holds 15)
+    on both routes."""
     import numpy as np
 
     from ss_asr_tpu_torch.ops.kernels import lstm as klstm
 
     H = asr_tree["encoder"]["blstm4"]["fwd"]["w_hh"].shape[0]
     err_max, ms, plain_ms, lib_ms, ops, moved = 0.0, 0.0, 0.0, 0.0, 0.0, 0
+    rev = (False, True)
+    route = klstm.lstm_fwd_route(H, B, 2)
+    if route[0] == 0:
+        fail(f"lstm_fwd: H={H} B={B} takes the streaming route, not a cluster")
+    held = klstm.resident_clusters(H, route[0], route[1], DEVICE, forward=True)
+    print(f"lstm_fwd H={H} B={B}: clusters of {route[0]} CTAs, tiles of {route[1]} rows: "
+          f"{-(-B // route[1]) * 2} clusters, of which the card holds {held} at once "
+          f"(the route's table says {klstm.CARD_CLUSTERS[route[0]]})", flush=True)
+
+    def operands(T, Bn, gen=rng):
+        gx = torch.from_numpy(gen.standard_normal((2, T, Bn, 4 * H)).astype("float32")).to(DEVICE)
+        lens = gen.integers(2, T + 1, size=Bn)
+        lens[:3] = (0, 1, T)
+        return gx, torch.from_numpy(lens.astype("int32")).to(DEVICE)
+
+    # the shapes timed beside the flagship's draw from their own stream, so that the
+    # phases after this one see the inputs they always saw
+    extra = np.random.default_rng(SEED + 11)
+
     # frames into each listener layer: the pyramid halves time three times
     for layer, T in zip(("pblstm1", "pblstm2", "pblstm3", "blstm4"),
                         (FRAMES, FRAMES // 2, FRAMES // 4, FRAMES // 8)):
         p = asr_tree["encoder"][layer]
         whh = torch.from_numpy(np.stack([p["fwd"]["w_hh"], p["bwd"]["w_hh"]])).to(DEVICE)
-        gx = torch.from_numpy(rng.standard_normal((2, T, B, 4 * H)).astype("float32")).to(DEVICE)
-        lens = rng.integers(2, T + 1, size=B)
-        lens[:3] = (0, 1, T)
-        lengths = torch.from_numpy(lens.astype("int32")).to(DEVICE)
-        rev = (False, True)
+        gx, lengths = operands(T, B)
+        before = klstm.LAUNCHES["lstm_fwd_cluster"]
         y, cs = klstm.lstm_fwd(gx, whh, lengths, rev)
         torch.cuda.synchronize()
+        if klstm.LAUNCHES["lstm_fwd_cluster"] != before + 1:
+            fail(f"lstm_fwd {layer}: the flagship shape did not take the cluster route")
+        again = klstm.lstm_fwd(gx, whh, lengths, rev)
+        if not (torch.equal(again[0], y) and torch.equal(again[1], cs)):
+            fail(f"lstm_fwd {layer}: two runs differ")
         y_ref = torch.stack([klstm.lstm_seq_plain(gx[d], whh[d], lengths, rev[d])[0] for d in range(2)])
         cs_ref = torch.stack([klstm.lstm_seq_plain(gx[d], whh[d], lengths, rev[d])[1] for d in range(2)])
         err = float((y - y_ref).abs().max())
@@ -228,17 +263,51 @@ def check_lstm(torch, rng, asr_tree):
         p_ms = cuda_ms(torch, lambda: [klstm.lstm_seq_plain(gx[d], whh[d], lengths, rev[d])
                                        for d in range(2)], reps=3)
         l_ms = cudnn_lstm_ms(torch, p["fwd"]["w_ih"].shape[0], H, T, B, backward=False)
-        print(f"lstm_fwd {layer} T={T} B={B} H={H} 2 dirs: y max_abs_err {err:.3e} "
-              f"cs max_abs_err {err_cs:.3e} kernel {k_ms:.3f} ms plain {p_ms:.3f} ms "
-              f"cuDNN nn.LSTM forward {l_ms:.3f} ms", flush=True)
+        print(f"lstm_fwd {layer} T={T} B={B} H={H} 2 dirs (cluster of {route[0]}, tiles of "
+              f"{route[1]} rows): y max_abs_err {err:.3e} cs max_abs_err {err_cs:.3e}, two runs "
+              f"bit-equal; kernel {k_ms:.3f} ms ({k_ms / T * 1e3:.2f} us per step) plain "
+              f"{p_ms:.3f} ms cuDNN nn.LSTM forward {l_ms:.3f} ms", flush=True)
         if not (err <= LSTM_TOL and err_cs <= LSTM_TOL):
             fail(f"lstm_fwd {layer}: y err {err}, cs err {err_cs} > {LSTM_TOL}")
-        err_max = max(err_max, err)
+        if layer == "pblstm1":
+            alt = {r: cuda_ms(torch, lambda: klstm.lstm_fwd(gx, whh, lengths, rev,
+                                                             route=(route[0], r)))
+                   for r in klstm.TILE_ROWS}
+            old = cuda_ms(torch, lambda: klstm.lstm_fwd(gx, whh, lengths, rev, route=(0, 0)))
+            print(f"lstm_fwd {layer} B={B}: tiles of "
+                  + ", ".join(f"{r} rows {ms_r:.3f} ms" for r, ms_r in alt.items())
+                  + f"; the streaming route {old:.3f} ms", flush=True)
+            # the training batch: every tile height that keeps the clusters in one wave or two
+            gx32, len32 = operands(T, TRAIN_B, extra)
+            alt = {r: cuda_ms(torch, lambda: klstm.lstm_fwd(gx32, whh, len32, rev,
+                                                             route=(route[0], r)))
+                   for r in klstm.TILE_ROWS}
+            old = cuda_ms(torch, lambda: klstm.lstm_fwd(gx32, whh, len32, rev, route=(0, 0)))
+            print(f"lstm_fwd {layer} B={TRAIN_B}: route {klstm.lstm_fwd_route(H, TRAIN_B, 2)}; tiles of "
+                  + ", ".join(f"{r} rows {ms_r:.3f} ms" for r, ms_r in alt.items())
+                  + f"; the streaming route {old:.3f} ms", flush=True)
+        err_max = max(err_max, err, err_cs)
         ms += k_ms
         plain_ms += p_ms
         lib_ms += l_ms
         ops += 2 * T * B * (8.0 * H * H + 24 * H)  # h @ W_hh, then the cell
         moved += nbytes(gx, whh, lengths, y, cs)
+    # the TAE's text encoder: B = 64 rows of L = 48 characters
+    p = asr_tree["encoder"]["blstm4"]
+    whh = torch.from_numpy(np.stack([p["fwd"]["w_hh"], p["bwd"]["w_hh"]])).to(DEVICE)
+    gx, lengths = operands(TRAIN_L, 64, extra)
+    tae_route = klstm.lstm_fwd_route(H, 64, 2)
+    y, cs = klstm.lstm_fwd(gx, whh, lengths, rev)
+    y_ref, cs_ref = (torch.stack(v) for v in zip(*[klstm.lstm_seq_plain(gx[d], whh[d], lengths, rev[d])
+                                                   for d in range(2)]))
+    err = max(float((y - y_ref).abs().max()), float((cs - cs_ref).abs().max()))
+    if not err <= LSTM_TOL:
+        fail(f"lstm_fwd B=64 T={TRAIN_L}: err {err} > {LSTM_TOL}")
+    by_route = cuda_ms(torch, lambda: klstm.lstm_fwd(gx, whh, lengths, rev))
+    streamed = cuda_ms(torch, lambda: klstm.lstm_fwd(gx, whh, lengths, rev, route=(0, 0)))
+    print(f"lstm_fwd B=64 T={TRAIN_L} (the TAE's text encoder): route {tae_route} "
+          f"{-(-64 // tae_route[1]) * 2} clusters, max_abs_err {err:.3e}, {by_route:.3f} ms; the "
+          f"streaming route {streamed:.3f} ms", flush=True)
     b_ms, b_by = bound(ops, moved)
     return {"max_abs_err": err_max, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": b_ms, "bound_by": b_by}
@@ -503,8 +572,17 @@ def check_beam(torch, rng, model, lm):
         for K in BEAM_WIDTHS:
             tag = f"{name} K={K}"
             with torch.inference_mode():
+                before = kbeam.LAUNCHES[f"{name}_cluster"]
                 got_t = kbeam.beam_device(model, enc_h, comp_h, enc_lens, K, MAX_STEPS, lm_, 0.5)
                 torch.cuda.synchronize()
+                route = kbeam.beam_route(*beam_dims(model, lm_), enc_h.shape[1], K, B)
+                if route[0] == 0 or kbeam.LAUNCHES[f"{name}_cluster"] != before + 1:
+                    fail(f"{tag}: route by shape {route}, "
+                         f"{kbeam.LAUNCHES[f'{name}_cluster'] - before} cluster launches: the "
+                         "kernel phase's widths must take the cluster route")
+                again = kbeam.beam_device(model, enc_h, comp_h, enc_lens, K, MAX_STEPS, lm_, 0.5)
+                if not all(torch.equal(a, b) for a, b in zip(got_t, again)):
+                    fail(f"{tag}: two runs differ")
                 want_t = kbeam.beam_scan_plain(model, enc_h, comp_h, enc_lens, K, MAX_STEPS,
                                                lm_, 0.5)
                 plain_c = replay_frontier(torch, model, lm_, 0.5, enc_h, comp_h, enc_lens,
@@ -528,8 +606,8 @@ def check_beam(torch, rng, model, lm):
                 mine = c[want[1][d, b, slot] * V + want[0][d, b, slot]]
                 theirs = c[got[1][d, b, slot] * V + got[0][d, b, slot]]
                 res = F32_TIE_ULPS * float(np.spacing(np.float32(abs(mine))))
-                err32 = abs(float(plain_c[b, d, want[1][d, b, slot] * V + want[0][d, b, slot]])
-                            - mine)
+                err32 = abs(float(plain_c[b, d, want[1][d, b, slot] * V
+                                          + want[0][d, b, slot]]) - mine)
                 return abs(mine - theirs) <= min(res, NEAR_TIE), (
                     f"slot {slot}: float64 gap {abs(mine - theirs):.3e}, float32 resolution "
                     f"({F32_TIE_ULPS} ulps) {res:.3e}, plain float32 error {err32:.3e}")
@@ -557,7 +635,8 @@ def check_beam(torch, rng, model, lm):
                 fail(f"{tag}: along its own path the kernel's picks are off the step's K best "
                      f"by {pick_err}, its scores by {path_err} (> {SCORE_TOL}), or its done / "
                      "lengths differ from the plain step's")
-            print(f"{tag} B={B} S={enc_h.shape[1]}: seeded run of {plain_c.shape[1]} steps, final "
+            print(f"{tag} B={B} S={enc_h.shape[1]} (cluster route {route}): "
+                  f"seeded run of {plain_c.shape[1]} steps, final "
                   f"score max_abs_err {err:.3e} on {int(whole.sum())} whole rows; the kernel's "
                   f"own path replayed: picks within {pick_err:.3e} of the K best, scores within "
                   f"{path_err:.3e}, done and lengths equal, all {B} rows", flush=True)
@@ -607,7 +686,62 @@ def check_beam(torch, rng, model, lm):
             if K == BEAM_WIDTHS[0]:  # the default config's width goes into the JSON
                 out[name].update(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
                                  bound_by=b_by)
+    beam_routes(torch, running, lm, enc_h, comp_h, enc_lens)
     return out
+
+
+def beam_dims(model, lm):
+    """(H, F, M, V, HL) of the beam search's shape, HL = 0 without an LM."""
+    cfg = model.cfg
+    return (cfg.decoder_state_size, cfg.enc_out_dim, cfg.mlp_out_size, cfg.vocab_size,
+            lm.cfg.hidden_size if lm is not None else 0)
+
+
+def beam_routes(torch, model, lm, enc_h, comp_h, enc_lens):
+    """K8's routes timed over all MAX_STEPS steps (``model`` never emits EOS):
+    the cluster route by shape, the other utterance count a cluster that
+    serves the shape, and the one-block kernel, at the kernel phase's
+    batch and at the server batch of 8; then long memory (S = 1000 and 1500,
+    B = 8, K = 3 + LM) on the route by shape and the one-block kernel."""
+    import numpy as np
+
+    from ss_asr_tpu_torch.models import las
+    from ss_asr_tpu_torch.ops.kernels import beam as kbeam
+
+    cfg = model.cfg
+    H, F, M, V = cfg.decoder_state_size, cfg.enc_out_dim, cfg.mlp_out_size, cfg.vocab_size
+    HL = lm.cfg.hidden_size
+    for K in BEAM_WIDTHS:
+        for lm_ in (None, lm):
+            for Bn in (B, N_REQUESTS):
+                mem = tuple(t[:Bn].contiguous() for t in (enc_h, comp_h, enc_lens))
+                S = mem[0].shape[1]
+                hl = HL if lm_ else 0
+                by_shape = kbeam.beam_route(H, F, M, V, hl, S, K, Bn)
+                C = 4 * H // kbeam.STREAM_WIDTH
+                routes = [by_shape] + [(C, u) for u in (1, 2) if (C, u) != by_shape
+                                       and kbeam.cluster_plan(H, F, M, V, hl, S, K, C, u)]
+                routes += [(0, 0)] if by_shape != (0, 0) else []
+                with torch.inference_mode():
+                    times = {r: cuda_ms(torch, lambda: kbeam.beam_device(
+                        model, *mem, K, MAX_STEPS, lm_, 0.5, route=r)) for r in routes}
+                print(f"beam K={K} lm={lm_ is not None} B={Bn} S={S} {MAX_STEPS} steps, route "
+                      f"(C, U) by shape {by_shape}: " + ", ".join(
+                          f"{r} {ms:.3f} ms ({1e3 * ms / MAX_STEPS:.1f} us/step)"
+                          for r, ms in times.items()), flush=True)
+    rng = np.random.default_rng(SEED + 7)
+    for S in (1000, 1500):
+        enc = torch.from_numpy(rng.standard_normal((N_REQUESTS, S, F)).astype("float32")).to(DEVICE)
+        lens = torch.from_numpy(rng.integers(S // 2, S + 1, N_REQUESTS).astype("int32")).to(DEVICE)
+        with torch.inference_mode():
+            comp = las.attention_precompute(model.attention, enc)
+            by_shape = kbeam.beam_route(H, F, M, V, HL, S, 3, N_REQUESTS)
+            times = {r: cuda_ms(torch, lambda: kbeam.beam_device(
+                model, enc, comp, lens, 3, MAX_STEPS, lm, 0.5, route=r), reps=3)
+                for r in (by_shape, (0, 0))}
+        print(f"beam K=3 lm=True B={N_REQUESTS} S={S} {MAX_STEPS} steps: " + ", ".join(
+            f"route {r} {ms:.3f} ms ({1e3 * ms / MAX_STEPS:.1f} us/step)"
+            for r, ms in times.items()), flush=True)
 
 
 def check_spell(torch, rng, model):
@@ -701,6 +835,19 @@ def read_launches():
     return {k: v for c in launch_counters() for k, v in c.items()}
 
 
+#: the kernels with a cluster route, and the counter of their cluster launches
+CLUSTER_COUNTERS = {name: f"{name}_cluster"
+                    for name in ("lstm_fwd", "lstm_bwd", "beam_decode", "beam_decode_lm")}
+
+
+def require_cluster_route(path, launches):
+    """Every launch of a kernel with a cluster route on ``path`` took it."""
+    for name, counter in CLUSTER_COUNTERS.items():
+        if launches[counter] != launches[name]:
+            fail(f"{path}: {launches[counter]} of {launches[name]} {name} launches took the "
+                 "cluster route")
+
+
 @contextlib.contextmanager
 def serving(t, reload_paths=None):
     """The port's HTTP server over a signal-mode batcher of ``t``, in this
@@ -775,6 +922,7 @@ def serve_phase(torch, tag, t, sigs, need, reload_paths=None, routes=()):
         for name in names:
             if launches[path][name] < 1:
                 fail(f"{path}: launched {name} {launches[path][name]} times")
+        require_cluster_route(path, launches[path])
     # where a steady batch's time goes: the direct call, outside the launch counts
     print(f"{tag}: one direct batch of {len(signals)} signals, torch.profiler:", flush=True)
     profile_steps(torch, lambda: t.transcribe_signal_batch(signals, sr=SR), 3)
@@ -1207,10 +1355,11 @@ def check_fbank(torch, rng, sigs, stream_sig):
     return {"fbank": res}
 
 
-def train_config(config, idx, n_epochs):
-    """conf/default.yaml with the smoke's corpus, batch and cadence."""
+def train_config(config, split, n_epochs):
+    """conf/default.yaml with the smoke's corpus (``split``: its train and
+    eval indexes), batch and cadence."""
     c = copy.deepcopy(config)
-    c["asr"].update(train_index=idx, valid_index=idx, train_batch_size=TRAIN_B,
+    c["asr"].update(train_index=split[0], valid_index=split[1], train_batch_size=TRAIN_B,
                     valid_batch_size=TRAIN_B, n_epochs=n_epochs, logging_step=1,
                     save_step=1000, valid_step=1000, wer_step=1000)
     return c
@@ -1268,9 +1417,9 @@ def profile_steps(torch, step, n):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    groups = {"lstm_fwd (K2)": "lstm_fwd_kernel", "lstm_bwd (K3)": "lstm_bwd_",
+    groups = {"lstm_fwd (K2)": "lstm_fwd_", "lstm_bwd (K3)": "lstm_bwd_",
               "greedy_decode (K6 / K7)": "greedy_decode_kernel",
-              "beam_decode (K8)": "beam_decode_kernel",
+              "beam_decode (K8)": "beam_",
               "spell_fwd (K9)": "spell_fwd_kernel", "spell_bwd (K10)": "spell_bwd_kernel",
               "fbank (K11)": "fbank_kernel"}
     split, spans = {}, []
@@ -1379,9 +1528,7 @@ def check_train_step(torch, rng, config, asr_tree, tmp):
     for name in ("fbank", "lstm_fwd", "lstm_bwd", "spell_fwd", "spell_bwd"):
         if launches[name] < 1:
             fail(f"train step: launched {name} {launches[name]} times")
-    if launches["lstm_bwd_cluster"] != launches["lstm_bwd"]:
-        fail(f"train step: {launches['lstm_bwd_cluster']} of {launches['lstm_bwd']} lstm_bwd "
-             f"launches took the cluster route")
+    require_cluster_route("train step", launches)
     if not all(bool(torch.isfinite(v)) for v in losses):
         fail("train step: a non-finite loss")
     profile_steps(torch, step, 3)
@@ -1409,22 +1556,42 @@ def write_corpus(rng, tmp, n_utts):
     return idx
 
 
+def held_out_split(idx):
+    """``make_split`` of an index (90 / 10, seeded) -> (train.tsv, eval.tsv)
+    beside it, each with at least one row."""
+    from ss_asr_tpu_torch.data.index import load_index, make_split
+
+    make_split(idx, seed=SEED)
+    split = tuple(os.path.join(os.path.dirname(idx), f"{n}.tsv") for n in ("train", "eval"))
+    sizes = [len(load_index(p)) for p in split]
+    if min(sizes) < 1:
+        fail(f"make_split of {idx}: {sizes} rows")
+    print(f"make_split of {os.path.basename(os.path.dirname(idx))}/{os.path.basename(idx)}: "
+          f"{sizes[0]} rows to train on, {sizes[1]} held out for validation", flush=True)
+    return split
+
+
 def check_cli_train(rng, config, tmp):
     """``python -m ss_asr_tpu_torch.cli.train ASRTrainer`` as a subprocess on
-    one repeated flagship batch: CLI_STEPS steps whose loss must fall, the
-    checkpoints and the tracker written; then a second invocation resumes
-    at the saved step."""
+    one repeated flagship batch (the train side of a held-out split holds
+    one batch of TRAIN_B and a part): CLI_STEPS steps whose loss must fall,
+    the checkpoints and the tracker written; then a second invocation
+    resumes at the saved step."""
     import numpy as np
     import yaml
 
-    idx = write_corpus(rng, tmp, TRAIN_B)
+    from ss_asr_tpu_torch.data.index import load_index
+
+    split = held_out_split(write_corpus(rng, tmp, CLI_UTTS))
+    if not TRAIN_B <= len(load_index(split[0])) < 2 * TRAIN_B:
+        fail(f"cli.train: the train split does not hold exactly one batch of {TRAIN_B}")
     log = os.path.join(tmp, "cli_runs", "smoke", "asr", "metrics.jsonl")
     ck = os.path.join(tmp, "cli_result", "smoke")
 
     def run(n_epochs):
         path = os.path.join(tmp, f"cli_{n_epochs}_epochs.yaml")
         with open(path, "w") as f:
-            yaml.safe_dump(train_config(config, idx, n_epochs), f)
+            yaml.safe_dump(train_config(config, split, n_epochs), f)
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "ss_asr_tpu_torch.cli.train", "ASRTrainer", "smoke", path,
@@ -1631,9 +1798,7 @@ def timed_steps(torch, tag, trainer, optims, step, batch, need):
     for name in need:
         if launches[name] < 1:
             fail(f"{tag}: launched {name} {launches[name]} times")
-    if "lstm_bwd" in need and launches["lstm_bwd_cluster"] != launches["lstm_bwd"]:
-        fail(f"{tag}: {launches['lstm_bwd_cluster']} of {launches['lstm_bwd']} lstm_bwd launches "
-             f"took the cluster route")
+    require_cluster_route(tag, launches)
     profile_steps(torch, step, 2)
     return launches
 
@@ -1750,12 +1915,13 @@ def check_cli_seed(config, idx, tmp):
     import numpy as np
     import yaml
 
+    train, held = held_out_split(idx)
     c = copy.deepcopy(config)
     for key, epochs in (("tae", SEED_EPOCHS["tae"]), ("adv", SEED_EPOCHS["adv"]),
                         ("sae", SEED_EPOCHS["sae"]), ("asr", SEED_EPOCHS["asr"])):
-        c[key].update(train_index=idx, valid_index=idx, n_epochs=epochs, logging_step=1,
+        c[key].update(train_index=train, valid_index=held, n_epochs=epochs, logging_step=1,
                       save_step=1000, valid_step=4)
-    c["adv"]["eval_index"] = idx
+    c["adv"]["eval_index"] = held
     c["asr"].update(train_batch_size=TRAIN_B, valid_batch_size=TRAIN_B, wer_step=1000)
     c["seed_train"] = {"super_its": 1}
     path = os.path.join(tmp, "seed.yaml")
@@ -1786,7 +1952,8 @@ def check_cli_seed(config, idx, tmp):
     tae, sae = scalars("tae", "train_loss"), scalars("sae", "train_loss")
     gen = scalars("adv", "gen_loss_train")
     print(f"cli.train Seed (TAE {SEED_EPOCHS['tae']}, ADV {SEED_EPOCHS['adv']}, SAE "
-          f"{SEED_EPOCHS['sae']} epochs on {PRE_UTTS} utterances) in {secs:.1f} s (process "
+          f"{SEED_EPOCHS['sae']} epochs on the train side of a held-out split of {PRE_UTTS} "
+          f"utterances) in {secs:.1f} s (process "
           f"included): TAE loss {tae[0]:.4f} -> {tae[-1]:.4f} over {len(tae)} steps, ADV generator "
           f"loss {gen[0]:.4f} -> {gen[-1]:.4f} over {len(gen)}, SAE loss {sae[0]:.4f} -> "
           f"{sae[-1]:.4f} over {len(sae)}; relays asr_1, asr_2, asr_3 written", flush=True)
@@ -1904,7 +2071,8 @@ def main() -> None:
         check_cli_seed(config, idx, tmp)
     # each kernel's launches on the serving and training paths, every path counted on its own
     counts = {name: sum(ls[name] for ls in launches.values()) for name in results}
-    cluster_launches = sum(ls.get("lstm_bwd_cluster", 0) for ls in launches.values())
+    cluster_launches = {name: sum(ls[counter] for ls in launches.values())
+                        for name, counter in CLUSTER_COUNTERS.items()}
 
     replaces = {"lstm_fwd": ("lstm_fwd.cu", "ss_asr_tpu/ops/pallas/lstm.py:149"),
                 "greedy_decode": ("greedy_decode.cu", "ss_asr_tpu/ops/pallas/decode.py:33"),
@@ -1915,8 +2083,10 @@ def main() -> None:
                 "lstm_bwd": ("lstm_bwd.cu", "ss_asr_tpu/ops/pallas/lstm.py:217"),
                 "spell_bwd": ("spell_bwd.cu", "ss_asr_tpu/ops/pallas/spell.py:208"),
                 "fbank": ("frontend.cu", "ss_asr_tpu/ops/pallas/frontend.py:83")}
-    # K3's launch of both directions also computes the fused BiLSTM backward
-    covers = {"lstm_bwd": "ss_asr_tpu/ops/pallas/bilstm.py:75"}
+    # K2 with one direction is also the one-direction loop; K2's and K3's launches of
+    # both directions also compute the fused BiLSTM forward and backward
+    covers = {"lstm_fwd": ["ss_asr_tpu/ops/pallas/lstm.py:38", "ss_asr_tpu/ops/pallas/bilstm.py:33"],
+              "lstm_bwd": ["ss_asr_tpu/ops/pallas/bilstm.py:75"]}
     kernels = [{"name": name, "route": "cuda", "source": f"ss_asr_tpu_torch/csrc/{src}",
                 "replaces": rep, "launches": counts[name],
                 "max_abs_err": results[name]["max_abs_err"], "ms": results[name]["ms"],
@@ -1925,7 +2095,8 @@ def main() -> None:
                 **({"also_replaces": covers[name]} if name in covers else {}),
                 **({"bound_f32_ms": results[name]["bound_f32_ms"]}
                    if "bound_f32_ms" in results[name] else {}),
-                **({"cluster_launches": cluster_launches} if name == "lstm_bwd" else {})}
+                **({"cluster_launches": cluster_launches[name]} if name in cluster_launches
+                   else {})}
                for name, (src, rep) in replaces.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -32,7 +32,7 @@ from ss_asr_tpu_torch.ops.kernels.beam import MAX_BEAM
 from ss_asr_tpu_torch.utils import checkpoint as ckpt
 from ss_asr_tpu_torch.vocab import Mapper
 
-MESH_TODO = "ROADMAP.md port item 9 (data-parallel serving and training)"
+MESH_TODO = "ROADMAP.md port item 10 (data-parallel serving and training)"
 
 
 def round_up(x: int, m: int) -> int:

@@ -22,9 +22,9 @@ import numpy as np
 TYPES = ["ASRTrainer", "ASRTester", "LMTrainer", "CHARLMTrainer",
          "TAETrainer", "SAETrainer", "AdvTrainer", "ADVTrainer", "Seed"]
 UNPORTED = {
-    "LMTrainer": "ROADMAP.md port item 7 (the char-LM trainer)",
-    "CHARLMTrainer": "ROADMAP.md port item 7 (the char-LM trainer)",
-    "ASRTester": "ROADMAP.md port item 7 (ASRTester)",
+    "LMTrainer": "ROADMAP.md port item 3 (the char-LM trainer)",
+    "CHARLMTrainer": "ROADMAP.md port item 3 (the char-LM trainer)",
+    "ASRTester": "ROADMAP.md port item 4 (ASRTester)",
 }
 
 

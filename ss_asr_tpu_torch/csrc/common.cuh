@@ -44,4 +44,29 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
   }
 }
 
+// 16 bytes global -> shared by cp.async; with ok false it writes zeros and
+// reads nothing
+__device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = ok ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(n));
+}
+
+// The cluster barrier in its two halves: the arrive releases this thread's
+// writes (the remote ones too) to the cluster, the wait acquires the others'.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// sigmoid without its branch (a warp's rows take both sides): one expf and
+// one division; for x < 0 it gives e * (1 / (1 + e)), within an ulp of e / (1 + e).
+__device__ __forceinline__ float sigmoid_sel(float x) {
+  const float e = expf(-fabsf(x));
+  const float r = 1.f / (1.f + e);
+  return x >= 0.f ? r : e * r;
+}
+
 }  // namespace ss

@@ -262,30 +262,6 @@ __host__ __device__ inline ClusterPlan cluster_plan(int H, int C, int R) {
   return p;
 }
 
-// 16 bytes global -> shared; with ok false it writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = ok ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(n));
-}
-
-// The cluster barrier in its two halves: the arrive releases this thread's
-// writes (the remote ones too) to the cluster, the wait acquires the others'.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-// ss::sigmoid without its branch (a warp's rows take both sides): one expf and
-// one division; for x < 0 it gives e * (1 / (1 + e)), within an ulp of e / (1 + e).
-__device__ __forceinline__ float sigmoid_sel(float x) {
-  const float e = expf(-fabsf(x));
-  const float r = 1.f / (1.f + e);
-  return x >= 0.f ? r : e * r;
-}
-
 template <int R>
 __global__ void __launch_bounds__(kCThreads, 1)
 lstm_bwd_cluster_kernel(const float* __restrict__ gx,     // [D, T, B, 4H]
@@ -362,18 +338,18 @@ lstm_bwd_cluster_kernel(const float* __restrict__ gx,     // [D, T, B, 4H]
       const bool ok = b0 + r < B;
       const size_t row_t = ((size_t)t * B + b0 + r), row_p = ((size_t)tp * B + b0 + r);
       for (int k4 = lane; k4 < H / 4; k4 += 32)
-        cp_async16_zfill(hp + (buf * R + r) * H + k4 * 4,
+        ss::cp_async16_zfill(hp + (buf * R + r) * H + k4 * 4,
                          ok && has_p ? yd + row_p * H + k4 * 4 : yd, ok && has_p);
       for (int l4 = lane; l4 < LC / 4; l4 += 32) {
         const int l = l4 * 4, q = (l >= Hc) + (l >= 2 * Hc) + (l >= 3 * Hc), j = l - q * Hc;
-        cp_async16_zfill(gxs + (buf * R + r) * LC + l,
+        ss::cp_async16_zfill(gxs + (buf * R + r) * LC + l,
                          ok ? gxd + row_t * G + q * H + c * Hc + j : gxd, ok);
       }
       for (int j4 = lane; j4 < Hc / 4; j4 += 32) {
         const int o = (buf * R + r) * Hc + j4 * 4, u = c * Hc + j4 * 4;
-        cp_async16_zfill(cst + o, ok ? csd + row_t * H + u : csd, ok);
-        cp_async16_zfill(dys + o, ok ? dyd + row_t * H + u : dyd, ok);
-        cp_async16_zfill(csp + o, ok && has_p ? csd + row_p * H + u : csd, ok && has_p);
+        ss::cp_async16_zfill(cst + o, ok ? csd + row_t * H + u : csd, ok);
+        ss::cp_async16_zfill(dys + o, ok ? dyd + row_t * H + u : dyd, ok);
+        ss::cp_async16_zfill(csp + o, ok && has_p ? csd + row_p * H + u : csd, ok && has_p);
       }
     }
     asm volatile("cp.async.commit_group;");
@@ -455,7 +431,7 @@ lstm_bwd_cluster_kernel(const float* __restrict__ gx,     // [D, T, B, 4H]
     const int n = s - s_lo, buf = n & 1;
     const int t = reverse ? s : T - 1 - s;
     // the pieces of the carry that the cluster wrote during the last step
-    if (n > 0) cluster_wait();
+    if (n > 0) ss::cluster_wait();
 
     // one item per (row, own unit): the gates, the cell's adjoint, dgates
     for (int idx = tid; idx < R * Hc; idx += kCThreads) {
@@ -479,8 +455,8 @@ lstm_bwd_cluster_kernel(const float* __restrict__ gx,     // [D, T, B, 4H]
         for (int src = 0; src < C; ++src) sum += sl[src * R * Hc];
         dh += sum;
       }
-      const float ig = sigmoid_sel(a[0]), fg = sigmoid_sel(a[1]);
-      const float gg = tanhf(a[2]), og = sigmoid_sel(a[3]);
+      const float ig = ss::sigmoid_sel(a[0]), fg = ss::sigmoid_sel(a[1]);
+      const float gg = tanhf(a[2]), og = ss::sigmoid_sel(a[3]);
       const float c_t = cst[(buf * R + r) * Hc + j];
       const float c_p = csp[(buf * R + r) * Hc + j];
       const float tanh_c = tanhf(c_t);
@@ -565,11 +541,11 @@ lstm_bwd_cluster_kernel(const float* __restrict__ gx,     // [D, T, B, 4H]
       if (s + 2 < s_hi) prefetch(s + 2, buf, gw, kGroupWarps);
       recompute(buf ^ 1, gw, kGroupWarps);
     }
-    cluster_arrive();
+    ss::cluster_arrive();
     __syncthreads();  // the next step's gate sums are complete; pd and dgates are free
   }
   // no CTA leaves while a neighbour may still write into it
-  if (s_hi > s_lo) cluster_wait();
+  if (s_hi > s_lo) ss::cluster_wait();
   cluster.sync();
 }
 

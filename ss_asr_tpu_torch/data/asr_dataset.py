@@ -1,7 +1,10 @@
 """ASR dataset: index-driven batches with bucketed static shapes.
 
-Port of ``ss_asr_tpu/data/asr_dataset.py`` (no multi-host shards, which
-wait for ROADMAP item 9).  ``text_only`` batches carry no fbanks but a
+Port of ``ss_asr_tpu/data/asr_dataset.py`` with its signature (no
+multi-host shards, ``host_shard`` / ``set_epoch``, which wait for ROADMAP
+item 10).  ``sort_key`` reorders the index as pandas' ``sort_values`` does
+(``data.index.sort_order``); ``iter_batches(shuffle=True)`` permutes the
+batch starts with the JAX package's generator and seed.  ``text_only`` batches carry no fbanks but a
 noised copy of the text (the text autoencoder's input): each character but
 SOS and EOS is dropped with probability ``drop_rate``, drawn from
 ``np.random.default_rng(seed)`` in the JAX package's order, so both
@@ -25,7 +28,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from ss_asr_tpu_torch.data.index import load_index
+from ss_asr_tpu_torch.data.index import load_index, sort_order
 from ss_asr_tpu_torch.vocab import EOS_ID, SOS_ID, Mapper
 
 
@@ -48,8 +51,11 @@ class Batch:
 
 class ASRDataset:
     def __init__(self, tsv_file: str, batch_size: int = 32, text_only: bool = False,
-                 drop_rate: float = 0.0, t_bucket: int = 128, l_bucket: int = 16, seed: int = 0):
+                 drop_rate: float = 0.0, t_bucket: int = 128, l_bucket: int = 16,
+                 sort_key: str = "", sort_ascending: bool = True, seed: int = 0):
         self.rows: List[Dict] = load_index(tsv_file)
+        if sort_key:
+            self.rows = [self.rows[i] for i in sort_order(self.rows, sort_key, sort_ascending)]
         self.batch_size = batch_size
         self.text_only = text_only
         self.drop_rate = drop_rate
@@ -60,6 +66,12 @@ class ASRDataset:
         self.num_samples = len(self.rows)
         self.feature_dim = (int(np.load(self.rows[0]["path_to_fbank"]).shape[1])
                             if self.rows and not text_only else 0)
+
+    def get_char_dim(self) -> int:
+        return self.mapper.get_dim()
+
+    def get_feature_dim(self) -> int:
+        return self.feature_dim
 
     def __len__(self) -> int:
         """Number of full batches."""
@@ -119,11 +131,17 @@ class ASRDataset:
         x, x_lens = self._load_fbanks(rows)
         return Batch(x, x_lens, y, y_lens, valid=valid)
 
-    def iter_batches(self, drop_last: bool = True, prefetch: int = 2) -> Iterator[Batch]:
-        """Iterate batches in index order with background-thread prefetch."""
+    def iter_batches(self, shuffle: bool = False, drop_last: bool = True, prefetch: int = 2,
+                     seed: Optional[int] = None) -> Iterator[Batch]:
+        """Iterate batches with background-thread prefetch, in index order or,
+        with ``shuffle``, in an order drawn from ``default_rng(seed)`` (without
+        a seed, from one drawn from the dataset's own generator)."""
         starts = list(range(0, self.num_samples, self.batch_size))
         if drop_last:
             starts = [s for s in starts if s + self.batch_size <= self.num_samples]
+        if shuffle:
+            rng = np.random.default_rng(seed if seed is not None else self.rng.integers(2**31))
+            rng.shuffle(starts)
         if prefetch <= 0:
             for s in starts:
                 yield self.get_batch(s, pad_to_full=not drop_last)
@@ -168,3 +186,29 @@ class ASRDataset:
                     q.get_nowait()
                 except queue.Empty:
                     break
+
+
+def load_asr_dataset(path: str, batch_size: int = 32, text_only: bool = False,
+                     drop_rate: float = 0.0, **kw) -> Tuple[Mapper, ASRDataset]:
+    """Reference-parity loader: returns (Mapper, ASRDataset)."""
+    ds = ASRDataset(path, batch_size, text_only=text_only, drop_rate=drop_rate, **kw)
+    return ds.mapper, ds
+
+
+def prepare_x(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Unpadded fbank lengths recovered by counting the frames with any
+    nonzero value: [B, T, F] (or the reference's [1, B, T, F]) -> (x float32,
+    x_lens int32)."""
+    x = np.asarray(x, dtype=np.float32)
+    if x.ndim == 4:
+        x = x[0]
+    return x, (x.sum(axis=-1) != 0).sum(axis=-1).astype(np.int32)
+
+
+def prepare_y(y: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Text lengths under the SOS-as-pad convention, ``sum(y != 0) + 1``:
+    [B, L] (or [1, B, L]) -> (y int32, y_lens int32)."""
+    y = np.asarray(y, dtype=np.int32)
+    if y.ndim == 3:
+        y = y[0]
+    return y, ((y != 0).sum(axis=-1) + 1).astype(np.int32)

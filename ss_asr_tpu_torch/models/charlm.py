@@ -22,6 +22,7 @@ from ss_asr_tpu_torch.vocab import SOS_ID, VOCAB_SIZE
 class CharLMConfig:
     vocab_size: int = VOCAB_SIZE
     hidden_size: int = 128
+    tf_rate: float = 0.9
 
     @classmethod
     def from_dict(cls, d: dict) -> "CharLMConfig":
@@ -64,7 +65,9 @@ def teacher_forced_unroll(
     The input at step 0 is ``first_input`` (SOS by default); after step t
     the unroll feeds ``labels[:, t]`` where ``tf_draws[t]`` is 1 and the
     argmax of ``logits + gumbel[t]`` where it is 0.  Without ``tf_draws``
-    every step feeds the label; without ``gumbel`` the noise is zero."""
+    every step feeds the label; without ``gumbel`` the noise is zero.  The
+    choice is a ``torch.where`` on the ids, so draws on the card cost no
+    host sync."""
     B, L = labels.shape
     dev = labels.device
     ids = first_input if first_input is not None else torch.full((B,), SOS_ID, dtype=torch.long,
@@ -74,9 +77,10 @@ def teacher_forced_unroll(
     for t in range(L):
         logits, state = step(p, ids.long(), state)
         out.append(logits)
-        if tf_draws is None or bool(tf_draws[t] > 0.5):
+        if tf_draws is None:
             ids = labels[:, t]
         else:
             noise = gumbel[t] if gumbel is not None else 0.0
-            ids = torch.argmax(logits + noise, dim=-1)
+            ids = torch.where(tf_draws[t] > 0.5, labels[:, t].long(),
+                              torch.argmax(logits + noise, dim=-1))
     return torch.stack(out, dim=1)

@@ -41,8 +41,11 @@ _I = ctypes.c_int
 
 #: C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
-    # gx, whh, lengths, y, cs, D, T, B, H, rev_bits, device, stream
-    "ss_lstm_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint, _I, _P],
+    # gx, whh, lengths, y, cs, D, T, B, H, rev_bits, cluster, rows, device,
+    # stream
+    "ss_lstm_fwd": [_P] * 5 + [_I] * 4 + [ctypes.c_uint, _I, _I, _I, _P],
+    # H, cluster, rows, device, resident (int*)
+    "ss_lstm_fwd_resident_clusters": [_I, _I, _I, _I, _P],
     # gx, whh, lengths, y, cs, dy, dgx, D, T, B, H, rev_bits, cluster, rows,
     # device, stream
     "ss_lstm_bwd": [_P] * 7 + [_I] * 4 + [ctypes.c_uint, _I, _I, _I, _P],
@@ -60,6 +63,10 @@ SIGNATURES = {
     # ... the same up to max_steps, then the 11 LM weights, HL, lm_weight,
     # device, stream
     "ss_beam_decode_lm": [_P] * 19 + [_I] * 8 + [_P] * 11 + [_I, ctypes.c_float, _I, _P],
+    # the same as ss_beam_decode_lm (the LM's pointers null without one), then
+    # the packed weight stream, cluster, utterances a cluster, device, stream
+    "ss_beam_decode_cluster": [_P] * 19 + [_I] * 8 + [_P] * 11 + [_I, ctypes.c_float, _P, _I, _I,
+                                                                  _I, _P],
     # enc, comp, lens, tf, gumbel, teacher_emb, the 10 speller weights,
     # logits, a, h1s, c1s, h2s, c2s, fed, B, S, F, M, H, V, L, device, stream
     "ss_spell_fwd": [_P] * 23 + [_I] * 7 + [_I, _P],

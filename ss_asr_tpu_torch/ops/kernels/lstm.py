@@ -2,7 +2,8 @@
 their plain versions, and the autograd function over both.
 
 Kernels: ``csrc/lstm_fwd.cu`` (``ss_lstm_fwd``), which replaces the TPU
-kernel ``ss_asr_tpu/ops/pallas/lstm.py::_make_fwd_kernel``, and
+kernel ``ss_asr_tpu/ops/pallas/lstm.py::_make_fwd_kernel`` (and, with both
+directions of a layer in one launch, ``bilstm.py::_bi_fwd_kernel``), and
 ``csrc/lstm_bwd.cu`` (``ss_lstm_bwd``), which replaces
 ``::_make_bwd_kernel`` and, with both directions of a layer in one launch,
 ``ss_asr_tpu/ops/pallas/bilstm.py::_bi_bwd_kernel``.  The sources' headers
@@ -27,16 +28,16 @@ import torch
 from ss_asr_tpu_torch.ops.kernels import build
 
 #: kernel launches made by ``lstm_fwd`` / ``lstm_bwd`` (one per call on CUDA
-#: tensors); ``lstm_bwd_cluster`` counts those of ``lstm_bwd`` that took the
-#: cluster route
-LAUNCHES = {"lstm_fwd": 0, "lstm_bwd": 0, "lstm_bwd_cluster": 0}
+#: tensors); ``lstm_fwd_cluster`` / ``lstm_bwd_cluster`` count those that took
+#: the cluster route
+LAUNCHES = {"lstm_fwd": 0, "lstm_fwd_cluster": 0, "lstm_bwd": 0, "lstm_bwd_cluster": 0}
 
-#: what the cluster route of ``csrc/lstm_bwd.cu`` is sized by: the shared
-#: memory a block can use on an H100 (bytes), the cluster sizes and the tile
-#: heights (batch rows a cluster) it is written for, and the clusters of each
-#: size that an H100 SXM (132 SMs, a CTA of this kernel fills one) holds at
-#: once, as ``cudaOccupancyMaxActiveClusters`` counts them
-#: (``resident_clusters``)
+#: what the cluster routes of ``csrc/lstm_fwd.cu`` and ``csrc/lstm_bwd.cu``
+#: are sized by: the shared memory a block can use on an H100 (bytes), the
+#: cluster sizes and the tile heights (batch rows a cluster) they are written
+#: for, and the clusters of each size that an H100 SXM (132 SMs, a CTA of
+#: either kernel fills one) holds at once, as
+#: ``cudaOccupancyMaxActiveClusters`` counts them (``resident_clusters``)
 SMEM_BYTES = 227 * 1024
 CLUSTER_SIZES = (1, 2, 4, 8)
 TILE_ROWS = (4, 5, 6, 8)
@@ -67,6 +68,51 @@ def cluster_serves(H: int, C: int, R: int = 8) -> bool:
             and cluster_smem_bytes(H, C, R) <= SMEM_BYTES)
 
 
+def fwd_cluster_smem_bytes(H: int, C: int, R: int) -> int:
+    """Shared memory of one CTA of the forward's cluster route (``fwd_plan``
+    in ``csrc/lstm_fwd.cu``): the resident ``[H, 4H/C]`` slice of ``W_hh``,
+    the double-buffered gathered h, a ring of three steps of gx columns, the
+    partial gate sums (8 pairs of k-slices), the cell carry and the tile's
+    lengths."""
+    Hc = H // C
+    LC = 4 * Hc
+    return 4 * (H * LC + 2 * R * H + 3 * R * LC + 8 * R * LC + R * Hc + R)
+
+
+def fwd_cluster_serves(H: int, C: int, R: int = 8) -> bool:
+    """Whether the forward's cluster route serves hidden size H with C CTAs
+    and tiles of R rows: each CTA's H/C units a whole number of warps (its
+    4H/C gate columns in groups of 128), H a multiple of 64 (16 k-slices of
+    float4s), and the slice and the buffers inside one block's shared
+    memory."""
+    return (C in CLUSTER_SIZES and R in TILE_ROWS and H % C == 0 and H // C > 0
+            and (H // C) % 32 == 0 and H % 64 == 0
+            and fwd_cluster_smem_bytes(H, C, R) <= SMEM_BYTES)
+
+
+def _route(serves, H: int, B: int, D: int) -> Tuple[int, int]:
+    """(C, R): C the smallest cluster size that serves H at tiles of 8 rows;
+    R the smallest tile height whose clusters are all resident at once, else
+    8; (0, 0) where no cluster serves H."""
+    for C in CLUSTER_SIZES:
+        if serves(H, C):
+            fit = [R for R in TILE_ROWS if -(-B // R) * D <= CARD_CLUSTERS[C]]
+            return C, (fit[0] if fit else TILE_ROWS[-1])
+    return 0, 0
+
+
+def lstm_fwd_route(H: int, B: int, D: int) -> Tuple[int, int]:
+    """The route of ``lstm_fwd`` on the card, from the shape alone ->
+    ``(C, R)``: a thread-block cluster of C CTAs per (direction, tile of R
+    batch rows) with ``W_hh`` resident in shared memory and ``h_t``
+    all-gathered through distributed shared memory, C the smallest of 1, 2,
+    4, 8 that serves H; or ``(0, 0)``, the streaming kernel, where none does.
+    R is the smallest of 4, 5, 6, 8 whose clusters are all resident at once
+    on the card (15 clusters of 8 CTAs): B = 8 or 16 take tiles of 4 rows,
+    the training batch B = 32 tiles of 5."""
+    return _route(fwd_cluster_serves, H, B, D)
+
+
 def lstm_bwd_route(H: int, B: int, D: int) -> Tuple[int, int]:
     """The route of ``lstm_bwd`` on the card, from the shape alone ->
     ``(C, R)``: a thread-block cluster of C CTAs per (direction, tile of R
@@ -76,11 +122,7 @@ def lstm_bwd_route(H: int, B: int, D: int) -> Tuple[int, int]:
     smallest of 4, 5, 6, 8 whose clusters are all resident at once on the
     card (a step's time grows with R, but a second wave doubles it): the
     flagship's B = 32 takes tiles of 5 rows, 14 clusters where 15 fit."""
-    for C in CLUSTER_SIZES:
-        if cluster_serves(H, C):
-            fit = [R for R in TILE_ROWS if -(-B // R) * D <= CARD_CLUSTERS[C]]
-            return C, (fit[0] if fit else TILE_ROWS[-1])
-    return 0, 0
+    return _route(cluster_serves, H, B, D)
 
 
 def lstm_seq_plain(
@@ -176,13 +218,17 @@ def _operands(name: str, dev: torch.device, **tensors) -> None:
 
 
 def lstm_fwd(
-    gx: torch.Tensor, whh: torch.Tensor, lengths: torch.Tensor, reverse: Sequence[bool]
+    gx: torch.Tensor, whh: torch.Tensor, lengths: torch.Tensor, reverse: Sequence[bool],
+    route: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """D independent packed LSTM loops (D = directions of a layer).
 
     gx [D, T, B, 4H] float32; whh [D, H, 4H] float32; lengths [B];
     ``reverse[d]`` makes direction d walk time newest-first.  Returns
-    ``(y, cs)``, each [D, T, B, H].  Differentiate through ``LSTMSeq``."""
+    ``(y, cs)``, each [D, T, B, H].  Differentiate through ``LSTMSeq``.
+    On the card ``lstm_fwd_route`` picks the kernel's route from the shape;
+    ``route=(C, R)`` asks for one that serves the shape instead (the tests
+    hold every cluster size), ``(0, 0)`` for the streaming kernel."""
     _check("lstm_fwd", gx, whh, lengths, reverse)
     D, T, B, G = gx.shape
     H = G // 4
@@ -196,33 +242,44 @@ def lstm_fwd(
     lengths = lengths.to(device=gx.device, dtype=torch.int32).contiguous()
     y = torch.empty(D, T, B, H, device=gx.device, dtype=torch.float32)
     cs = torch.empty_like(y)
+    C, R = lstm_fwd_route(H, B, D) if route is None else route
+    if C and not fwd_cluster_serves(H, C, R):
+        raise ValueError(f"lstm_fwd: no cluster of {C} CTAs with tiles of {R} rows serves H={H}")
     if T == 0 or B == 0:
         return y, cs
     lib = build.load_library()
     rev_bits = sum(1 << d for d in range(D) if reverse[d])
     err = lib.ss_lstm_fwd(
         gx.data_ptr(), whh.data_ptr(), lengths.data_ptr(), y.data_ptr(), cs.data_ptr(),
-        D, T, B, H, rev_bits, gx.device.index or 0,
+        D, T, B, H, rev_bits, C, R, gx.device.index or 0,
         torch.cuda.current_stream(gx.device).cuda_stream,
     )
     build.check(err, "ss_lstm_fwd")
     build.count_launch(LAUNCHES, "lstm_fwd")
+    if C:
+        build.count_launch(LAUNCHES, "lstm_fwd_cluster")
     return y, cs
 
 
-def resident_clusters(H: int, C: int, R: int, device: torch.device) -> int:
-    """How many clusters of the cluster route the card holds at once
-    (``cudaOccupancyMaxActiveClusters``): what ``CARD_CLUSTERS`` records."""
+def resident_clusters(H: int, C: int, R: int, device: torch.device,
+                      forward: bool = False) -> int:
+    """How many clusters of the backward's (``forward``: the forward's)
+    cluster route the card holds at once (``cudaOccupancyMaxActiveClusters``):
+    what ``CARD_CLUSTERS`` records."""
     import ctypes
 
-    if not cluster_serves(H, C, R):
+    if not (fwd_cluster_serves if forward else cluster_serves)(H, C, R):
         raise ValueError(f"resident_clusters: no cluster of {C} CTAs with tiles of {R} rows "
                          f"serves H={H}")
     n = ctypes.c_int(0)
     lib = build.load_library()
-    err = lib.ss_lstm_bwd_resident_clusters(
-        H, C, R, torch.device(device).index or 0, ctypes.addressof(n))
-    build.check(err, "ss_lstm_bwd_resident_clusters")
+    index, out = torch.device(device).index or 0, ctypes.addressof(n)
+    if forward:
+        err = lib.ss_lstm_fwd_resident_clusters(H, C, R, index, out)
+        build.check(err, "ss_lstm_fwd_resident_clusters")
+    else:
+        err = lib.ss_lstm_bwd_resident_clusters(H, C, R, index, out)
+        build.check(err, "ss_lstm_bwd_resident_clusters")
     return n.value
 
 

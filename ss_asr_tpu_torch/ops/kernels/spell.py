@@ -61,7 +61,7 @@ def spell_fwd_plain(
         state, dec_out = las.speller_step(model.decoder, torch.cat([fed, context], -1), state)
         logits = rnn.linear(model.char_trans, dec_out)
         sampled = torch.argmax(logits + gumbel[t], dim=-1)
-        fed = teacher_emb[t] if bool(tf_draws[t] > 0.5) else rnn.embed(model.embed, sampled)
+        fed = torch.where(tf_draws[t] > 0.5, teacher_emb[t], rnn.embed(model.embed, sampled))
         (h1, c1), (h2, c2) = state
         for o, v in zip(outs, (logits, a, h1, c1, h2, c2, fed)):
             o.append(v)

@@ -32,7 +32,7 @@ The parameters are updated in place.  The accumulators are kept per
 parameter name; ``convert`` writes and reads them in the JAX package's npz
 layout.  ``prefix_mask`` / ``path_mask`` select names by their dotted path,
 as the JAX package's select leaves by key path.  Schedules and gradient
-accumulation are ROADMAP item 11.
+accumulation are ROADMAP item 8.
 """
 
 from __future__ import annotations

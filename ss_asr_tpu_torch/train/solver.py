@@ -9,7 +9,7 @@ checkpoint-relay helper of the trainers that share parameters.  Randomness comes
 ``torch.Generator`` seeded with ``seed + crc32(module_id) % 2**16`` (the
 JAX package's key offset; the streams themselves differ from
 ``jax.random``'s).  A ``parallel`` section asking for more than one device
-(ROADMAP item 9) and the orbax checkpoint backend (left out of the port)
+(ROADMAP item 10) and the orbax checkpoint backend (left out of the port)
 raise.
 """
 
@@ -27,8 +27,8 @@ from ss_asr_tpu_torch.utils import checkpoint as ckpt
 from ss_asr_tpu_torch.utils.logging import MetricLogger
 from ss_asr_tpu_torch.utils.tracker import Tracker
 
-MULTI_DEVICE_TODO = "ROADMAP.md port item 9 (data-parallel serving and training)"
-OPTIONS_TODO = ("ROADMAP.md port item 11 (the trainers' options: gradient accumulation, "
+MULTI_DEVICE_TODO = "ROADMAP.md port item 10 (data-parallel serving and training)"
+OPTIONS_TODO = ("ROADMAP.md port item 8 (the trainers' options: gradient accumulation, "
                 "learning-rate schedules, SpecAugment)")
 
 

@@ -76,3 +76,6 @@ class Mapper:
         """Id sequence -> human string: cut after first EOS, drop SOS/EOS."""
         out = [self.r_mapping[c] for c in trim_eos(seq)]
         return "".join(out).replace(SOS_TKN, "").replace(EOS_TKN, "")
+
+    def get_dim(self) -> int:
+        return len(self.mapping)

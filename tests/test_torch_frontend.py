@@ -93,3 +93,23 @@ def test_numpy_constants_equal_jax():
         np.testing.assert_array_equal(fe.mel_filterbank(sr, n_fft), jfe.mel_filterbank(sr, n_fft))
         np.testing.assert_array_equal(fe._windowed_dft_basis(n_fft), jfe._windowed_dft_basis(n_fft))
     assert fe.LOG_EPS == jfe.LOG_EPS
+
+
+def test_plain_frontend_meets_the_librosa_golden_fixture():
+    """The port's frontend on the CPU (``fbank_plain`` through
+    ``log_mel_fbank``) against the repository's librosa-0.6 golden, with the
+    signal and the tolerance of
+    ``tests/test_frontend.py::test_librosa_golden_fixture``: rtol 2e-3, atol
+    1e-5 in the linear domain."""
+    import os
+
+    blob = np.load(os.path.join(os.path.dirname(__file__), "fixtures",
+                                "librosa06_port_golden.npz"))
+    sr = 16000
+    y = np.random.default_rng(20260819).standard_normal(sr // 2).astype(np.float32)
+    np.testing.assert_array_equal(blob["y"], y)
+    ref = blob["logmel"]
+    with torch.no_grad():
+        ours = fe.log_mel_fbank(torch.from_numpy(y), sr).numpy()
+    assert ours.shape == ref.shape
+    np.testing.assert_allclose(np.exp(ours), np.exp(ref.astype(np.float64)), rtol=2e-3, atol=1e-5)

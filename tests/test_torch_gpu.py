@@ -246,10 +246,11 @@ def test_beam_decode_matches_plain(cuda, sizes, lm_hidden, K, use_lm):
 def test_beam_decode_long_memory_matches_plain(cuda, K, use_lm):
     """At the flagship width, S = 1500 encoder steps (120 s, the longest
     window the server takes) puts the K beams' attention weights past the
-    kernel's shared buffer, into its global scratch.  Against the plain
-    frontier; and rows no longer than 1000 steps give bit for bit what the
-    shared-memory path gives them at S = 1000 (padding steps add exact
-    zeros)."""
+    one-block kernel's shared buffer, into its global scratch.  Against the
+    plain frontier; and rows no longer than 1000 steps give bit for bit what
+    the shared-memory path gives them at S = 1000 (padding steps add exact
+    zeros).  The one-block route by request (K = 3 takes the cluster route
+    by shape, whose split of the memory steps follows S)."""
     model, lm = _models(las.ASRConfig(), 128, 11, cuda)
     lm_ = lm if use_lm else None
     rng = np.random.default_rng(12)
@@ -259,14 +260,110 @@ def test_beam_decode_long_memory_matches_plain(cuda, K, use_lm):
     enc_lens = torch.tensor([S, 1000, 700, 1], dtype=torch.int32, device=cuda)
     with torch.inference_mode():
         comp_h = las.attention_precompute(model.attention, enc_h)
-        got = kbeam.beam_device(model, enc_h, comp_h, enc_lens, K, 12, lm_, 0.5)
+        got = kbeam.beam_device(model, enc_h, comp_h, enc_lens, K, 12, lm_, 0.5, route=(0, 0))
         want = kbeam.beam_scan_plain(model, enc_h, comp_h, enc_lens, K, 12, lm_, 0.5)
         cands = replay_frontier(torch, model, lm_, 0.5, enc_h, comp_h, enc_lens, *want[:2])[0]
         short = kbeam.beam_device(model, enc_h[1:, :1000].contiguous(),
-                                  comp_h[1:, :1000].contiguous(), enc_lens[1:], K, 12, lm_, 0.5)
+                                  comp_h[1:, :1000].contiguous(), enc_lens[1:], K, 12, lm_, 0.5,
+                                  route=(0, 0))
     _assert_frontier_matches(got, want, frontier_gaps(torch, cands, K, 12))
     for a, b in zip(got, short):
         assert torch.equal(a[..., 1:, :] if a.dim() == 3 else a[1:], b)
+
+
+CLUSTER_SIZES = dict(encoder_state_size=32, decoder_state_size=64, mlp_out_size=32, feature_dim=5)
+
+
+@pytest.mark.parametrize("K,U,C", [(1, 1, 2), (1, 2, 2), (3, 1, 2), (3, 2, 2), (4, 2, 2), (8, 1, 2),
+                                   (3, 1, 4), (3, 2, 4), (8, 1, 4)])
+@pytest.mark.parametrize("use_lm", [False, True], ids=["beam", "beam+lm"])
+def test_beam_cluster_matches_plain(cuda, K, U, C, use_lm):
+    """K8's cluster route (clusters of C CTAs with 128 gate columns each: H
+    = 64 for 2, 128 for 4; one or two utterances a cluster, B = 5 so that a
+    cluster holds a missing utterance) against the plain frontier by the
+    near-tie rule, its counter, and a second run bit-equal to the first."""
+    sizes = dict(CLUSTER_SIZES, decoder_state_size=32 * C)
+    model, lm = _models(las.ASRConfig(**sizes), 32, 9, cuda)
+    lm_ = lm if use_lm else None
+    with torch.inference_mode():
+        enc_h, comp_h, enc_lens = _memory(model, np.random.default_rng(K + U), cuda, B=5, T=64)
+        before = dict(kbeam.LAUNCHES)
+        got = kbeam.beam_device(model, enc_h, comp_h, enc_lens, K, 30, lm_, 0.6, route=(C, U))
+        torch.cuda.synchronize()
+        key = "beam_decode_lm" if use_lm else "beam_decode"
+        assert kbeam.LAUNCHES[key] == before[key] + 1
+        assert kbeam.LAUNCHES[f"{key}_cluster"] == before[f"{key}_cluster"] + 1
+        want = kbeam.beam_scan_plain(model, enc_h, comp_h, enc_lens, K, 30, lm_, 0.6)
+        cands = replay_frontier(torch, model, lm_, 0.6, enc_h, comp_h, enc_lens, *want[:2])[0]
+        again = kbeam.beam_device(model, enc_h, comp_h, enc_lens, K, 30, lm_, 0.6, route=(C, U))
+    _assert_frontier_matches(got, want, frontier_gaps(torch, cands, K, 30))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("K,U", [(3, 1), (3, 2), (8, 1)])
+@pytest.mark.parametrize("use_lm", [False, True], ids=["beam", "beam+lm"])
+def test_beam_cluster_long_memory_matches_plain(cuda, K, U, use_lm):
+    """At the flagship width (clusters of 8), S = 1500 encoder steps: the
+    attention split over the cluster, 188 steps a CTA, against the plain
+    frontier, and a second run bit-equal to the first."""
+    model, lm = _models(las.ASRConfig(), 128, 13, cuda)
+    lm_ = lm if use_lm else None
+    rng = np.random.default_rng(14)
+    S = 1500
+    enc_h = torch.from_numpy(
+        rng.standard_normal((3, S, model.cfg.enc_out_dim)).astype(np.float32)).to(cuda)
+    enc_lens = torch.tensor([S, 700, 1], dtype=torch.int32, device=cuda)
+    with torch.inference_mode():
+        comp_h = las.attention_precompute(model.attention, enc_h)
+        got = kbeam.beam_device(model, enc_h, comp_h, enc_lens, K, 12, lm_, 0.5, route=(8, U))
+        want = kbeam.beam_scan_plain(model, enc_h, comp_h, enc_lens, K, 12, lm_, 0.5)
+        cands = replay_frontier(torch, model, lm_, 0.5, enc_h, comp_h, enc_lens, *want[:2])[0]
+        again = kbeam.beam_device(model, enc_h, comp_h, enc_lens, K, 12, lm_, 0.5, route=(8, U))
+    _assert_frontier_matches(got, want, frontier_gaps(torch, cands, K, 12))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("U", [1, 2])
+@pytest.mark.parametrize("use_lm", [False, True], ids=["beam", "beam+lm"])
+def test_beam_cluster_early_exit(cuda, U, use_lm):
+    """With an EOS bias of 50 every beam ends within two steps: the cluster
+    route then writes SOS tokens and identity parents, equal to the plain
+    frontier."""
+    model, lm = _models(las.ASRConfig(**CLUSTER_SIZES), 32, 4, cuda)
+    model = copy.deepcopy(model)
+    with torch.no_grad():
+        model.char_trans.bias[EOS_ID] = 50.0
+    lm_ = lm if use_lm else None
+    with torch.inference_mode():
+        enc_h, comp_h, enc_lens = _memory(model, np.random.default_rng(2), cuda, B=3, T=16)
+        got = kbeam.beam_device(model, enc_h, comp_h, enc_lens, 4, 9, lm_, 0.5, route=(2, U))
+        want = kbeam.beam_scan_plain(model, enc_h, comp_h, enc_lens, 4, 9, lm_, 0.5)
+    assert bool(got[3].all()) and (got[0][-1] == 0).all()
+    for g, w in zip(got[:2] + got[3:], want[:2] + want[3:]):
+        assert torch.equal(g, w)
+    torch.testing.assert_close(got[2], want[2], atol=1e-4, rtol=0)
+
+
+def test_beam_takes_the_route_of_its_shape_and_refuses_one_that_does_not_serve(cuda):
+    cfg = las.ASRConfig()
+    H, F, M, V = cfg.decoder_state_size, cfg.enc_out_dim, cfg.mlp_out_size, cfg.vocab_size
+    assert kbeam.beam_route(H, F, M, V, 128, 64, 3, 8) == (8, 1)
+    assert kbeam.beam_route(H, F, M, V, 128, 64, 3, 16) == (8, 2)
+    assert kbeam.beam_route(H, F, M, V, 128, 64, 8, 16) == (8, 1)  # K > 4: 8 rows, 16 clusters
+    assert kbeam.beam_route(H, F, M, V, 128, 64, 16, 8) == (0, 0)
+    model, lm = _models(las.ASRConfig(**CLUSTER_SIZES), 32, 3, cuda)
+    with torch.inference_mode():
+        enc_h, comp_h, enc_lens = _memory(model, np.random.default_rng(5), cuda, B=3, T=16)
+        before = kbeam.LAUNCHES["beam_decode_lm_cluster"]
+        by_shape = kbeam.beam_device(model, enc_h, comp_h, enc_lens, 3, 6, lm, 0.5)
+        assert kbeam.LAUNCHES["beam_decode_lm_cluster"] == before + 1
+        kbeam.beam_device(model, enc_h, comp_h, enc_lens, 16, 6, lm, 0.5)
+        assert kbeam.LAUNCHES["beam_decode_lm_cluster"] == before + 1
+        with pytest.raises(ValueError, match="serves"):
+            kbeam.beam_device(model, enc_h, comp_h, enc_lens, 3, 6, lm, 0.5, route=(2, 4))
+    assert by_shape[0].shape == (6, 3, 3)
 
 
 @pytest.mark.parametrize("use_lm", [False, True], ids=["beam", "beam+lm"])
@@ -417,6 +514,66 @@ def test_lstm_bwd_takes_the_route_of_its_shape_and_refuses_one_that_does_not_ser
     torch.testing.assert_close(by_shape[0], streamed[0], atol=1e-5, rtol=0)
     with pytest.raises(ValueError, match="serves"):
         klstm.lstm_bwd(gx, whh, lengths, y, cs, dy, (False, True), route=(4, 8))
+
+
+@pytest.mark.parametrize("D,reverse", [(1, (False,)), (1, (True,)), (2, (False, True))])
+@pytest.mark.parametrize("H,route,T,B", [
+    (64, (1, 8), 13, 5), (64, (2, 4), 9, 11), (128, (2, 8), 7, 17), (128, (4, 4), 11, 6),
+    (256, (8, 8), 9, 13), (256, (8, 4), 12, 7), (256, (8, 5), 10, 12), (256, (8, 6), 8, 13),
+    (64, (1, 4), 1, 1), (256, (8, 8), 48, 64),
+    (384, (0, 0), 6, 5), (256, (0, 0), 5, 3),
+], ids=lambda v: str(v).replace(" ", ""))
+def test_lstm_fwd_routes_match_plain(cuda, D, reverse, H, route, T, B):
+    """K2 on the cluster route at C = 1, 2, 4, 8 with every tile height, the
+    TAE's batch (16 clusters of 8 where 15 fit: a second wave), and on the
+    streaming route: B not a multiple of the tile, lengths 0 and 1, both
+    directions and one alone; y and cs against the plain loop, the route's
+    counter, and a second run bit-equal to the first."""
+    rng = np.random.default_rng(T * B + H + 2)
+    gx = torch.from_numpy(rng.standard_normal((D, T, B, 4 * H)).astype(np.float32)).to(cuda)
+    whh = torch.from_numpy((rng.standard_normal((D, H, 4 * H)) / np.sqrt(H)).astype(np.float32))
+    whh = whh.to(cuda)
+    lens = rng.integers(0, T + 1, size=B)
+    lens[: min(B, 2)] = (0, 1)[: min(B, 2)]
+    if B > 2:
+        lens[2] = T
+    lengths = torch.from_numpy(lens.astype(np.int32)).to(cuda)
+    before = dict(klstm.LAUNCHES)
+    y, cs = klstm.lstm_fwd(gx, whh, lengths, reverse, route=route)
+    torch.cuda.synchronize()
+    assert klstm.LAUNCHES["lstm_fwd"] == before["lstm_fwd"] + 1
+    assert klstm.LAUNCHES["lstm_fwd_cluster"] == before["lstm_fwd_cluster"] + (route[0] > 0)
+    for d in range(D):
+        y_ref, cs_ref = klstm.lstm_seq_plain(gx[d], whh[d], lengths, reverse[d])
+        torch.testing.assert_close(y[d], y_ref, atol=1e-5, rtol=0)
+        torch.testing.assert_close(cs[d], cs_ref, atol=1e-5, rtol=0)
+    again = klstm.lstm_fwd(gx, whh, lengths, reverse, route=route)
+    assert torch.equal(again[0], y) and torch.equal(again[1], cs)
+
+
+def test_lstm_fwd_takes_the_route_of_its_shape_and_refuses_one_that_does_not_serve(cuda):
+    H, T, B = 256, 6, 9
+    assert klstm.lstm_fwd_route(H, B, 2) == (8, 4) and klstm.lstm_fwd_route(384, B, 2) == (0, 0)
+    g = torch.Generator().manual_seed(1)
+    gx = torch.randn(2, T, B, 4 * H, generator=g).to(cuda)
+    whh = (torch.randn(2, H, 4 * H, generator=g) / 16).to(cuda)
+    lengths = torch.full((B,), T, dtype=torch.int32, device=cuda)
+    before = klstm.LAUNCHES["lstm_fwd_cluster"]
+    by_shape = klstm.lstm_fwd(gx, whh, lengths, (False, True))
+    assert klstm.LAUNCHES["lstm_fwd_cluster"] == before + 1
+    streamed = klstm.lstm_fwd(gx, whh, lengths, (False, True), route=(0, 0))
+    assert klstm.LAUNCHES["lstm_fwd_cluster"] == before + 1
+    for a, b in zip(by_shape, streamed):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="serves"):
+        klstm.lstm_fwd(gx, whh, lengths, (False, True), route=(4, 8))
+
+
+def test_lstm_fwd_resident_clusters_match_the_route_table(cuda):
+    """The card holds as many forward clusters as the route's table says
+    (``CARD_CLUSTERS``), at every tile height."""
+    for R in klstm.TILE_ROWS:
+        assert klstm.resident_clusters(256, 8, R, cuda, forward=True) == klstm.CARD_CLUSTERS[8]
 
 
 @pytest.mark.parametrize("sr", [16000, 22050])

@@ -1,7 +1,8 @@
-"""What the redesigned LSTM-backward and frontend kernels rest on, held on
-the CPU: the route that ``lstm_bwd`` takes from a shape, a numpy model of
-the cluster route's decomposition (column slices per CTA, the carry as a
-sum of per-CTA partials, skipped steps) against the plain version, the
+"""What the redesigned LSTM, beam and frontend kernels rest on, held on
+the CPU: the routes that ``lstm_fwd`` and ``lstm_bwd`` take from a shape,
+numpy models of their cluster routes' decompositions (column slices per
+CTA; the forward's h all-gathered, the backward's carry a sum of per-CTA
+partials; skipped steps) against the plain versions, the
 packed DFT basis against numpy, a numpy model of the 3xTF32 split against
 float64 by the frontend kernel's own tolerances, and the ``device``
 argument that the frontend's entry points and the scheduled-sampling draws
@@ -132,6 +133,194 @@ def test_cluster_decomposition_equals_the_plain_backward(rng, reverse, C, R):
     got = cluster_model(gx, whh, lens, y.numpy(), cs.numpy(), dy, reverse, C, R)
     assert not np.isnan(got).any()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("B", [1, 8, 16, 32, 64])
+@pytest.mark.parametrize("H,C", [(8, 0), (64, 1), (128, 2), (256, 8), (320, 0), (384, 0),
+                                 (512, 0)])
+def test_lstm_fwd_route_by_shape(H, C, B):
+    """The forward's route: the smallest cluster whose slice fits its own
+    shared-memory plan at tiles of 8 rows; tiles of 4 rows while all clusters
+    are resident at once, else the smallest that are; the streaming kernel
+    where no cluster serves."""
+    got_c, got_r = klstm.lstm_fwd_route(H, B, 2)
+    assert got_c == C
+    if C == 0:
+        assert got_r == 0
+        assert not any(klstm.fwd_cluster_serves(H, c) for c in klstm.CLUSTER_SIZES)
+        return
+    assert klstm.fwd_cluster_serves(H, C, got_r)
+    assert not any(klstm.fwd_cluster_serves(H, c) for c in klstm.CLUSTER_SIZES if c < C)
+    fit = [r for r in klstm.TILE_ROWS if -(-B // r) * 2 <= klstm.CARD_CLUSTERS[C]]
+    assert got_r == (fit[0] if fit else 8)
+    # the flagship's batches: serving (8, 16), training (32: 14 clusters of 8 where 15
+    # fit), the TAE (64: 16 clusters, a second wave)
+    if H == 256:
+        assert got_r == {1: 4, 8: 4, 16: 4, 32: 5, 64: 8}[B]
+
+
+@pytest.mark.parametrize("H,C,R", [(256, 8, 8), (256, 8, 4), (128, 2, 8), (128, 4, 4), (64, 1, 8),
+                                   (64, 2, 5), (128, 4, 6)])
+def test_fwd_cluster_shared_memory_holds_the_slice_and_its_buffers(H, C, R):
+    Hc, LC = H // C, 4 * H // C
+    want = 4 * (H * LC + 2 * R * H + 3 * R * LC + 8 * R * LC + R * Hc + R)
+    assert klstm.fwd_cluster_smem_bytes(H, C, R) == want
+    assert 4 * H * LC < want <= klstm.SMEM_BYTES
+    assert klstm.fwd_cluster_serves(H, C, R)
+    if H == 256:  # no smaller cluster holds the flagship's slice
+        assert not any(klstm.fwd_cluster_serves(H, c, R) for c in (1, 2, 4))
+
+
+def test_fwd_cluster_refuses_what_it_does_not_serve():
+    assert not klstm.fwd_cluster_serves(256, 4)   # a 256 KB slice
+    assert not klstm.fwd_cluster_serves(384, 8)   # 48 units a CTA: no whole warps
+    assert not klstm.fwd_cluster_serves(256, 3)
+    assert not klstm.fwd_cluster_serves(256, 8, 7)
+    assert not klstm.fwd_cluster_serves(32, 1)    # 16 k-slices of float4s want H in 64s
+    assert not klstm.fwd_cluster_serves(128, 1)   # 128 units, but a 256 KB slice
+
+
+def fwd_cluster_model(gx, whh, lengths, reverse, C, R, slices=16):
+    """numpy model of the forward's cluster route for one direction: per tile
+    of R rows, CTA c owns units [c*Hc, (c+1)*Hc) and the columns q*H + c*Hc
+    + j of W_hh; its gate sums come from all of the gathered h in ``slices``
+    k-slices whose pairs meet first; it updates its units' cells and writes
+    its piece of h_t into every CTA's copy of the next step's h (an
+    all-gather: afterwards every copy is the whole h_t); the steps that no
+    row of the tile reaches are skipped and written after the loop."""
+    T, B, G = gx.shape
+    H, Hc = G // 4, G // 4 // C
+    KS = H // slices
+    sig = lambda v: 1.0 / (1.0 + np.exp(-v))
+    y = np.full((T, B, H), np.nan)
+    cs = np.full((T, B, H), np.nan)
+    cols = [np.concatenate([np.arange(q * H + c * Hc, q * H + (c + 1) * Hc) for q in range(4)])
+            for c in range(C)]
+    for b0 in range(0, B, R):
+        rows = slice(b0, min(b0 + R, B))
+        lens = np.clip(lengths[rows], 0, T)
+        maxlen = int(lens.max())
+        copies = np.zeros((C, 2, lens.size, H))  # every CTA's double-buffered h
+        cc = np.zeros((lens.size, H))
+        steps = range(T - maxlen, T) if reverse else range(maxlen)
+        for n, s in enumerate(steps):
+            t = T - 1 - s if reverse else s
+            buf = n & 1
+            valid = (t < lens)[:, None]
+            for c in range(C):
+                own = slice(c * Hc, (c + 1) * Hc)
+                h = copies[c, buf]
+                part = [h[:, k * KS:(k + 1) * KS] @ whh[k * KS:(k + 1) * KS][:, cols[c]]
+                        for k in range(slices)]
+                pairs = [part[2 * p] + part[2 * p + 1] for p in range(slices // 2)]
+                a = gx[t, rows][:, cols[c]] + sum(pairs[0::2]) + sum(pairs[1::2])
+                i, f, g, o = sig(a[:, :Hc]), sig(a[:, Hc:2 * Hc]), np.tanh(a[:, 2 * Hc:3 * Hc]), \
+                    sig(a[:, 3 * Hc:])
+                c_new = f * cc[:, own] + i * g
+                h_new = o * np.tanh(c_new)
+                cc[:, own] = np.where(valid, c_new, cc[:, own])
+                y[t, rows, own] = np.where(valid, h_new, 0.0)
+                cs[t, rows, own] = cc[:, own]
+                for dst in range(C):  # the all-gather
+                    copies[dst, buf ^ 1][:, own] = np.where(valid, h_new, h[:, own])
+        for t in range(maxlen, T):
+            y[t, rows] = 0.0
+            cs[t, rows] = 0.0 if reverse else cc
+    return y, cs
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("C,R", [(1, 8), (2, 4), (4, 5), (8, 8)])
+def test_fwd_cluster_decomposition_equals_the_plain_forward(rng, reverse, C, R):
+    """In float64, so that only the algebra is held: the column slices, the
+    k-slices and their pairs, the all-gather into double-buffered copies, the
+    frozen carry past a length and the skipped steps give lstm_seq_plain."""
+    T, B, H = 9, 11, 16 * C
+    gx = rng.standard_normal((T, B, 4 * H))
+    whh = rng.standard_normal((H, 4 * H)) / np.sqrt(H)
+    lens = rng.integers(0, T + 1, size=B)
+    lens[:3] = (0, 1, T)
+    lens[8:] = (2, 3, 0)  # the last tile of 8 rows (and of 4) ends early
+    want = klstm.lstm_seq_plain(torch.from_numpy(gx), torch.from_numpy(whh),
+                                torch.from_numpy(lens), reverse)
+    got = fwd_cluster_model(gx, whh, lens, reverse, C, R)
+    for g, w in zip(got, want):
+        assert not np.isnan(g).any()
+        np.testing.assert_allclose(g, w.numpy(), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("K", [1, 3, 4, 5, 8, 16])
+@pytest.mark.parametrize("B", [1, 8, 16, 32])
+@pytest.mark.parametrize("lm_hidden", [0, 128])
+def test_beam_route_by_shape(K, B, lm_hidden):
+    """K8's route at the flagship width: clusters of 8 CTAs (128 gate
+    columns each) for K <= 8, one utterance a cluster while all clusters are
+    resident at once (15 of 8 CTAs), else two where the 8 rows hold them (K
+    <= 4); one block per utterance above K = 8; the shared-memory plan of the
+    route's variant fits."""
+    from ss_asr_tpu_torch.ops.kernels import beam as kbeam
+
+    C, U = kbeam.beam_route(256, 512, 128, 50, lm_hidden, 64, K, B)
+    if K > 8:
+        assert (C, U) == (0, 0)
+        return
+    assert (C, U) == (8, 1 if B <= 15 or K > 4 else 2)
+    floats, att_in_smem, stages = kbeam.cluster_plan(256, 512, 128, 50, lm_hidden, 64, K, C, U)
+    assert floats <= kbeam.SMEM_FLOATS and att_in_smem and 3 <= stages <= kbeam.MAX_STAGES
+
+
+def test_beam_cluster_plan_refuses_what_it_does_not_serve():
+    from ss_asr_tpu_torch.ops.kernels import beam as kbeam
+
+    assert kbeam.cluster_plan(256, 512, 128, 50, 128, 64, 16, 8, 1) is None   # 16 rows
+    assert kbeam.cluster_plan(256, 512, 128, 50, 128, 64, 3, 8, 4) is None    # 4 x 4 rows
+    assert kbeam.cluster_plan(256, 512, 128, 50, 128, 64, 3, 4, 1) is None    # 256 columns
+    assert kbeam.cluster_plan(40, 48, 300, 50, 36, 20, 3, 1, 1) is None       # H = 40
+    assert kbeam.cluster_plan(256, 512, 128, 50, 256, 64, 3, 8, 1) is None    # 6 HL / C > 128
+    assert kbeam.cluster_plan(256, 512, 128, 50, 128, 64, 3, 16, 1) is None      # 64 columns
+    # the attention weights stay in shared memory to S = 1500 (120 s), past it in the
+    # global scratch, whose size the wrapper derives from the plan
+    plans = [kbeam.cluster_plan(256, 512, 128, 50, 128, S, 3, 8, 2) for S in (64, 1500, 8000)]
+    assert [p[1] for p in plans] == [True, True, False] and all(p[2] >= 3 for p in plans)
+
+
+@pytest.mark.parametrize("use_lm", [False, True], ids=["beam", "beam+lm"])
+def test_beam_weight_stream_is_packed_once_per_weights(use_lm):
+    """K8's packed weight panels are reused while the weights stay as they
+    were, equal to a fresh packing; an in-place change (an optimizer step,
+    ``load_state_dict``), another LM or a new model repacks them."""
+    import copy
+
+    from ss_asr_tpu_torch.models import charlm
+    from ss_asr_tpu_torch.ops.kernels import beam as kbeam
+    from ss_asr_tpu_torch.ops.kernels.decode import lm_operands, speller_operands
+
+    torch.manual_seed(0)
+    model = las.LAS(las.ASRConfig(encoder_state_size=32, decoder_state_size=64, mlp_out_size=32,
+                                  feature_dim=5))
+    lm = charlm.CharLM(charlm.CharLMConfig(hidden_size=32)) if use_lm else None
+    cpu = torch.device("cpu")
+
+    def packed(model, lm):
+        ws = speller_operands(model, cpu)
+        lws = lm_operands(lm, cpu) if lm is not None else None
+        return kbeam.cached_weight_stream(model, lm, ws, lws, 2), kbeam.weight_stream(ws, lws, 2)
+
+    first, fresh = packed(model, lm)
+    assert torch.equal(first, fresh)
+    assert packed(model, lm)[0] is first
+    with torch.no_grad():
+        model.decoder.layer_2.weight_hh.add_(1.0)
+    second, fresh = packed(model, lm)
+    assert second is not first and torch.equal(second, fresh)
+    other = copy.deepcopy(model)
+    assert packed(other, lm)[0] is not second and packed(model, lm)[0] is second
+    if use_lm:
+        lm.load_state_dict(lm.state_dict())
+        third, fresh = packed(model, lm)
+        assert third is not second and torch.equal(third, fresh)
+        new_lm = copy.deepcopy(lm)
+        assert packed(model, new_lm)[0] is not third
 
 
 @pytest.mark.parametrize("sr", [8000, 16000, 22050])

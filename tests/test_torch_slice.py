@@ -113,7 +113,7 @@ def test_unported_paths_name_their_roadmap_item(ckpts, rng):
     ROADMAP item 2) now decodes, equal to JAX."""
     asr, lm = ckpts
     pt = api.Transcriber.from_checkpoint(asr, CONFIG, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md port item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md port item 10"):
         api.Transcriber(pt.model, mesh=object())
     with pytest.raises(ValueError, match="outside 1..16"):
         api.Transcriber(pt.model, beam_size=17)

@@ -135,6 +135,15 @@ def test_charlm_teacher_forced_unroll_matches_jax(rng, tf):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)
 
 
+def test_charlm_config_keeps_tf_rate():
+    """``from_dict`` keeps the config's tf_rate (0.9 by default), as the JAX
+    config does, and drops keys neither config knows."""
+    d = {"hidden_size": 16, "tf_rate": 0.75, "unknown": 1}
+    got, want = charlm.CharLMConfig.from_dict(d), jcharlm.CharLMConfig.from_dict(d)
+    assert (got.hidden_size, got.tf_rate) == (want.hidden_size, want.tf_rate) == (16, 0.75)
+    assert charlm.CharLMConfig().tf_rate == jcharlm.CharLMConfig().tf_rate == 0.9
+
+
 def test_scheduled_sampling_draws_are_seeded():
     cfg = las.ASRConfig(**SIZES)
     a = las.draw_scheduled_sampling(40, 3, 0.9, cfg, torch.Generator().manual_seed(1), device="cpu")

@@ -243,9 +243,9 @@ def test_cli_train_refuses_missing_cuda_and_unported_trainers(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA is not available"):
         train.main(["ASRTrainer"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md port item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md port item 3"):
         train.main(["LMTrainer", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md port item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md port item 4"):
         train.main(["ASRTester", "--device", "cpu"])
 
 
@@ -254,7 +254,7 @@ def test_unported_options_raise(corpus, tmp_path, opt):
     config = copy.deepcopy(corpus)
     config["asr"]["opt"].update(opt)
     t = ASRTrainer(config, _paras(make_paras, tmp_path, "opt"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md port item 11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md port item 8"):
         t.set_model()
 
 
@@ -281,7 +281,7 @@ def test_more_than_one_device_is_refused(corpus, tmp_path, par, refused):
     """``n_data: auto`` counts the visible devices: one CPU device trains."""
     config = {**copy.deepcopy(corpus), "parallel": par}
     if refused:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md port item 9"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md port item 10"):
             ASRTrainer(config, _paras(make_paras, tmp_path, "par"), device="cpu")
     else:
         assert ASRTrainer(config, _paras(make_paras, tmp_path, "par"), device="cpu").tr.step == 0
