@@ -38,14 +38,20 @@ Phases, in order; any failure exits non-zero:
      within 1e-3 of the step's K best and ends at the kernel's scores
      (within 1e-3), done flags and lengths.  With an EOS bias of +50 every
      beam ends within two steps, equal to the plain frontier;
-   * spell_fwd at the training flagship (B = 32, L = 48, S = 64) and the
-     alignment shape (B * n = 16, L = 16), teacher-forced (tf 1.0),
-     scheduled sampling (tf 0.9, draws from a seeded torch.Generator) and
-     greedy feedback: all seven streams within 1e-4 of the plain loop.
+   * spell_fwd (K9) at the ASR step's shape (B = 32, L = 48, S = 64), the
+     TAE step's (B = 64, S = 48) and the alignment shape (B * n = 16, L =
+     16), teacher-forced (tf 1.0), scheduled sampling (tf 0.9, draws from a
+     seeded torch.Generator) and greedy feedback, on the route by shape
+     (which must be the cluster route): all seven streams and the two gate
+     streams within 1e-4 of the plain loop; at tf 0.9 also the one-row
+     kernel's seven streams, and every route timed (each tile height, the
+     one-row kernel).
    * lstm_bwd (K3) on the listener layers' shapes at the training batch
      (B = 32, T = 512/256/128/64, both directions, ragged lengths with 0
      and 1) and spell_bwd (K10) at B = 32, L = 48, S = 64, tf 0.9 and 1.0
-     (with a cotangent on the attention maps): K3's dgx and dW_hh, K10's
+     (with a cotangent on the attention maps) and at the TAE step's B = 64,
+     S = 48, on the cluster route (from K9's gates) and the one-row kernel,
+     every route timed: K3's dgx and dW_hh, K10's
      five streams, each held by a float64 anchor: its relative L2 error
      against a float64 run of the plain version at most 4x the plain
      float32 version's own error against that run, and at most 1e-4.  The
@@ -99,8 +105,9 @@ Phases, in order; any failure exits non-zero:
    every trained parameter, the listener's included, with a gradient.
    Then 12 steps (frontend from the waveform + forward + backward + clip +
    Adadelta) timed with CUDA events, the launch counters zeroed just
-   before and read just after (K2, K3, K9 and K10 must launch, every K3
-   launch on the cluster route), and a torch.profiler split of 3 steps.
+   before and read just after (K2, K3, K9 and K10 must launch, every K2,
+   K3, K9 and K10 launch on the cluster route), and a torch.profiler split
+   of 3 steps.
 7. ``python -m ss_asr_tpu_torch.cli.train ASRTrainer`` as a subprocess on a
    seeded corpus of 40 utterances (40 mels, 300-512 frames, texts up to 48
    ids), split by ``data.index.make_split`` (90 / 10, seeded) into a train
@@ -117,7 +124,7 @@ Phases, in order; any failure exits non-zero:
    gradient on the card against the CPU's plain versions by the
    float64-anchored rule of phase 6; then timed updates with the launch
    counters zeroed before and read after (K2 / K3, and K9 / K10 for the
-   TAE, must launch, K3 on the cluster route), every parameter outside the
+   TAE, must launch, each on its cluster route), every parameter outside the
    optimizer's mask
    bit-unchanged and every one inside moved.  Then ``cli.train Seed`` as a
    subprocess on the train side of a seeded held-out split of the
@@ -164,7 +171,8 @@ N_REQUESTS = 8
 BEAM_WIDTHS = (3, 8)
 SCORE_TOL = 1e-3
 SPELL_TOL = 1e-4
-SPELL_SHAPES = ((32, 48), (16, 16))  # (B, L): the training flagship, the alignment pass
+# (B, L, S): the ASR step, the TAE step (its text memory is at most 48 long), the alignment pass
+SPELL_SHAPES = ((32, 48, 64), (64, 48, 48), (16, 16, 64))
 LONG_SECONDS = 45.0
 TRAIN_B = 32  # the training flagship: B = 32, T = 512 frames, L = 48 decode steps
 TRAIN_L = 48
@@ -744,18 +752,34 @@ def beam_routes(torch, model, lm, enc_h, comp_h, enc_lens):
             for r, ms in times.items()), flush=True)
 
 
+def spell_routes(kspell, shape_route):
+    """Every route of K9 / K10 a shape could take: each tile height the
+    cluster route serves, then the one-row kernels (0); the route by shape
+    first."""
+    return [shape_route] + [r for r in kspell.TILE_ROWS + (0,) if r != shape_route]
+
+
 def check_spell(torch, rng, model):
-    """K9 against spell_fwd_plain at the training flagship and the alignment
-    shape, teacher-forced, sampled and greedy."""
+    """K9 against spell_fwd_plain at the training flagship, the TAE step's
+    shape and the alignment shape, teacher-forced, sampled and greedy, on
+    the route by shape (the cluster route, with the gates it writes for
+    K10); the one-row kernels too at tf 0.9; every route timed."""
     from ss_asr_tpu_torch.models import las
     from ss_asr_tpu_torch.ops.kernels import spell as kspell
     from ss_asr_tpu_torch.ops.kernels.decode import speller_operands
     from ss_asr_tpu_torch.vocab import VOCAB_SIZE
 
-    enc_all, comp_all, lens_all = listener_memory(torch, rng, model, SPELL_SHAPES[0][0])
+    enc_all, comp_all, lens_all = listener_memory(torch, rng, model,
+                                                  max(b for b, _, _ in SPELL_SHAPES))
+    cfg = model.cfg
     res = {"max_abs_err": 0.0}
-    for Bs, L in SPELL_SHAPES:
-        enc_h, comp_h, enc_lens = enc_all[:Bs], comp_all[:Bs], lens_all[:Bs]
+    for Bs, L, S in SPELL_SHAPES:
+        enc_h, comp_h = enc_all[:Bs, :S].contiguous(), comp_all[:Bs, :S].contiguous()
+        enc_lens = torch.clamp(lens_all[:Bs], max=S)
+        by_shape = kspell.spell_route(Bs, cfg.decoder_state_size, cfg.enc_out_dim,
+                                      cfg.mlp_out_size, S, VOCAB_SIZE)
+        if by_shape not in kspell.TILE_ROWS:
+            fail(f"spell_fwd B={Bs} L={L} S={S}: the route by shape is {by_shape}, not the cluster")
         for tf in (1.0, 0.9, None):
             g = torch.Generator().manual_seed(SEED)
             if tf is None:  # greedy feedback
@@ -766,25 +790,40 @@ def check_spell(torch, rng, model):
                                                                device=DEVICE)
             ids = torch.randint(0, VOCAB_SIZE, (L, Bs), generator=g).to(DEVICE)
             args = (model, enc_h, comp_h, enc_lens, tf_draws, gumbel, model.embed.weight[ids])
-            with torch.inference_mode():
-                got = kspell.spell_fwd(*args)
-                torch.cuda.synchronize()
-                want = kspell.spell_fwd_plain(*args)
-                err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-                k_ms = cuda_ms(torch, lambda: kspell.spell_fwd(*args))
-                p_ms = cuda_ms(torch, lambda: kspell.spell_fwd_plain(*args), reps=3)
             mode = "greedy" if tf is None else f"tf {tf} ({int(tf_draws.sum())}/{L} teacher)"
+            with torch.inference_mode():
+                want = kspell.spell_fwd_plain(*args, with_gates=True)
+                for route in ([by_shape, 0] if tf == 0.9 else [by_shape]):
+                    zero_launches()
+                    got = kspell.spell_fwd(*args, with_gates=True, route=route)
+                    torch.cuda.synchronize()
+                    took = read_launches()
+                    if took["spell_fwd"] != 1 or took["spell_fwd_cluster"] != int(route > 0):
+                        fail(f"spell_fwd route {route}: launches {took}")
+                    pairs = list(zip(got, want)) if route else list(zip(got[:7], want[:7]))
+                    err = max(float((a - b).abs().max()) for a, b in pairs)
+                    print(f"spell_fwd B={Bs} L={L} S={S} {mode} route {route}: "
+                          f"{len(pairs)} streams max_abs_err {err:.3e}", flush=True)
+                    if not err <= SPELL_TOL:
+                        fail(f"spell_fwd B={Bs} L={L} {mode} route {route}: max_abs_err {err} > "
+                             f"{SPELL_TOL}")
+                    res["max_abs_err"] = max(res["max_abs_err"], err)
+                if tf != 0.9:
+                    continue
+                times = {r: cuda_ms(torch, lambda: kspell.spell_fwd(*args, with_gates=r > 0,
+                                                                    route=r))
+                         for r in spell_routes(kspell, by_shape)}
+                p_ms = cuda_ms(torch, lambda: kspell.spell_fwd_plain(*args), reps=3)
             ws = speller_operands(model, enc_h.device)
-            b_ms, b_by = bound(Bs * L * speller_row_ops(ws, enc_h.shape[1]),
-                               nbytes(*args[1:], *ws, *got))
-            print(f"spell_fwd B={Bs} L={L} S={enc_h.shape[1]} {mode}: 7 streams max_abs_err "
-                  f"{err:.3e}; kernel {k_ms:.3f} ms plain {p_ms:.3f} ms bound {b_ms:.4f} ms "
-                  f"({b_by})", flush=True)
-            if not err <= SPELL_TOL:
-                fail(f"spell_fwd B={Bs} L={L} {mode}: max_abs_err {err} > {SPELL_TOL}")
-            res["max_abs_err"] = max(res["max_abs_err"], err)
-            if (Bs, L, tf) == (*SPELL_SHAPES[1], 1.0):  # the alignment pass of the server
-                res.update(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            b_ms, b_by = bound(Bs * L * speller_row_ops(ws, S),  # the streams and the gates
+                               nbytes(*args[1:], *ws, *want))
+            print(f"spell_fwd B={Bs} L={L} S={S} {mode}: " + ", ".join(
+                f"route {r} {ms:.3f} ms" for r, ms in times.items())
+                + f"; plain {p_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}); by shape "
+                f"{times[by_shape] / L * 1e3:.1f} us/step", flush=True)
+            if (Bs, L) == (TRAIN_B, TRAIN_L):  # the train step's shape and rate
+                res.update(ms=times[by_shape], plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+                           bound_by=b_by)
     return {"spell_fwd": res}
 
 
@@ -837,7 +876,8 @@ def read_launches():
 
 #: the kernels with a cluster route, and the counter of their cluster launches
 CLUSTER_COUNTERS = {name: f"{name}_cluster"
-                    for name in ("lstm_fwd", "lstm_bwd", "beam_decode", "beam_decode_lm")}
+                    for name in ("lstm_fwd", "lstm_bwd", "beam_decode", "beam_decode_lm",
+                                 "spell_fwd", "spell_bwd")}
 
 
 def require_cluster_route(path, launches):
@@ -1145,49 +1185,71 @@ def check_lstm_bwd(torch, rng, asr_tree):
 
 
 def check_spell_bwd(torch, rng, model):
-    """K10 against spell_bwd_plain at the training flagship (B = TRAIN_B,
-    L = TRAIN_L, S = 64), tf 0.9 and 1.0 (the latter with a cotangent on
-    the attention maps too): the five streams by the float64-anchored rule."""
+    """K10 against spell_bwd_plain at the ASR step's shape (B = 32, L = 48, S
+    = 64; tf 0.9, and 1.0 with a cotangent on the attention maps too) and
+    the TAE step's (B = 64, S = 48, tf 0.9): the five streams by the
+    float64-anchored rule, on the route by shape (the cluster route, from
+    the gates K9 wrote) and on the one-row kernel; every route timed."""
     from ss_asr_tpu_torch.models import las
     from ss_asr_tpu_torch.ops.kernels import spell as kspell
     from ss_asr_tpu_torch.ops.kernels.decode import speller_weights
     from ss_asr_tpu_torch.vocab import VOCAB_SIZE
 
-    enc_h, comp_h, enc_lens = listener_memory(torch, rng, model, TRAIN_B)
-    L, (Bs, S, _) = TRAIN_L, enc_h.shape
+    enc_all, comp_all, lens_all = listener_memory(torch, rng, model, SPELL_SHAPES[1][0])
+    cfg = model.cfg
     W = [w.detach() for w in speller_weights(model)]
     res = {"max_abs_err": 0.0}
-    for tf in (0.9, 1.0):
-        g = torch.Generator().manual_seed(SEED)
-        tf_draws, gumbel = las.draw_scheduled_sampling(L, Bs, tf, model.cfg, g, device=DEVICE)
-        ids = torch.randint(0, VOCAB_SIZE, (L, Bs), generator=g).to(DEVICE)
-        dlogits = torch.randn(L, Bs, VOCAB_SIZE, generator=g).to(DEVICE) / Bs
-        daext = (torch.randn(L, Bs, S, generator=g).to(DEVICE) / Bs if tf == 1.0
-                 else torch.zeros(L, Bs, S, device=DEVICE))
-        with torch.no_grad():
-            streams = kspell.spell_fwd(model, enc_h, comp_h, enc_lens, tf_draws, gumbel,
-                                       model.embed.weight[ids])[1:]
-            args = (enc_h, comp_h, dlogits, daext, streams, W)
-            got = kspell.spell_bwd(*args)
-            torch.cuda.synchronize()
-            want = kspell.spell_bwd_plain(*args)
-            ref = kspell.spell_bwd_plain(enc_h.double(), comp_h.double(), dlogits.double(),
-                                         daext.double(), tuple(s.double() for s in streams),
-                                         [w.double() for w in W])
-            for name, a, b, r in zip(("dg1", "dg2", "de", "dqp", "demb"), got, want, ref):
-                anchored(torch, f"spell_bwd tf {tf} {name}", a, b, r)
-            k_ms = cuda_ms(torch, lambda: kspell.spell_bwd(*args))
-            p_ms = cuda_ms(torch, lambda: kspell.spell_bwd_plain(*args), reps=3)
-        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        print(f"spell_bwd B={Bs} L={L} S={S} tf {tf} ({int(tf_draws.sum())}/{L} teacher): 5 "
-              f"streams max_abs_err {err:.3e}; kernel {k_ms:.3f} ms plain {p_ms:.3f} ms", flush=True)
-        res["max_abs_err"] = max(res["max_abs_err"], err)
-        if tf == 0.9:  # the train step's rate
-            # each forward product has two adjoint products' worth of work: the gate
-            # recompute and the product with the transposed weight
-            b_ms, b_by = bound(2 * Bs * L * speller_row_ops(W, S),
-                               nbytes(enc_h, comp_h, dlogits, daext, *streams, *W, *got))
-            res.update(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    for (Bs, L, S), tfs in zip(SPELL_SHAPES[:2], ((0.9, 1.0), (0.9,))):
+        enc_h, comp_h = enc_all[:Bs, :S].contiguous(), comp_all[:Bs, :S].contiguous()
+        enc_lens = torch.clamp(lens_all[:Bs], max=S)
+        by_shape = kspell.spell_route(Bs, cfg.decoder_state_size, cfg.enc_out_dim,
+                                      cfg.mlp_out_size, S, VOCAB_SIZE)
+        for tf in tfs:
+            g = torch.Generator().manual_seed(SEED)
+            tf_draws, gumbel = las.draw_scheduled_sampling(L, Bs, tf, model.cfg, g,
+                                                           device=DEVICE)
+            ids = torch.randint(0, VOCAB_SIZE, (L, Bs), generator=g).to(DEVICE)
+            dlogits = torch.randn(L, Bs, VOCAB_SIZE, generator=g).to(DEVICE) / Bs
+            daext = (torch.randn(L, Bs, S, generator=g).to(DEVICE) / Bs if tf == 1.0
+                     else torch.zeros(L, Bs, S, device=DEVICE))
+            with torch.no_grad():
+                out = kspell.spell_fwd(model, enc_h, comp_h, enc_lens, tf_draws, gumbel,
+                                       model.embed.weight[ids], with_gates=True)
+                streams, gates = out[1:7], out[7:]
+                args = (enc_h, comp_h, dlogits, daext, streams, W)
+                want = kspell.spell_bwd_plain(*args)
+                ref = kspell.spell_bwd_plain(enc_h.double(), comp_h.double(), dlogits.double(),
+                                             daext.double(), tuple(s.double() for s in streams),
+                                             [w.double() for w in W])
+                for route in (by_shape, 0):
+                    zero_launches()
+                    got = kspell.spell_bwd(*args, gates if route else None, route=route)
+                    torch.cuda.synchronize()
+                    took = read_launches()
+                    if took["spell_bwd"] != 1 or took["spell_bwd_cluster"] != int(route > 0):
+                        fail(f"spell_bwd route {route}: launches {took}")
+                    for name, a, b, r in zip(("dg1", "dg2", "de", "dqp", "demb"), got, want, ref):
+                        anchored(torch, f"spell_bwd B={Bs} S={S} tf {tf} route {route} {name}",
+                                 a, b, r)
+                    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+                    res["max_abs_err"] = max(res["max_abs_err"], err)
+                if tf != 0.9:
+                    continue
+                times = {r: cuda_ms(torch, lambda: kspell.spell_bwd(*args, gates if r else None,
+                                                                    route=r))
+                         for r in spell_routes(kspell, by_shape)}
+                p_ms = cuda_ms(torch, lambda: kspell.spell_bwd_plain(*args, gates), reps=3)
+            # the gates are inputs: the adjoint's products are one forward step's worth of
+            # work (each product with a weight, transposed)
+            b_ms, b_by = bound(Bs * L * speller_row_ops(W, S),
+                               nbytes(enc_h, comp_h, dlogits, daext, *streams, *gates, *W, *got))
+            print(f"spell_bwd B={Bs} L={L} S={S} tf {tf} ({int(tf_draws.sum())}/{L} teacher): "
+                  + ", ".join(f"route {r} {ms:.3f} ms" for r, ms in times.items())
+                  + f"; plain {p_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}); by shape "
+                  f"{times[by_shape] / L * 1e3:.1f} us/step", flush=True)
+            if Bs == TRAIN_B:  # the train step's shape and rate
+                res.update(ms=times[by_shape], plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+                           bound_by=b_by)
     return {"spell_bwd": res}
 
 
@@ -1417,18 +1479,19 @@ def profile_steps(torch, step, n):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    groups = {"lstm_fwd (K2)": "lstm_fwd_", "lstm_bwd (K3)": "lstm_bwd_",
-              "greedy_decode (K6 / K7)": "greedy_decode_kernel",
-              "beam_decode (K8)": "beam_",
-              "spell_fwd (K9)": "spell_fwd_kernel", "spell_bwd (K10)": "spell_bwd_kernel",
-              "fbank (K11)": "fbank_kernel"}
+    groups = {"lstm_fwd (K2)": ("lstm_fwd_",), "lstm_bwd (K3)": ("lstm_bwd_",),
+              "greedy_decode (K6 / K7)": ("greedy_decode_kernel",),
+              "beam_decode (K8)": ("beam_",),
+              "spell_fwd (K9)": ("spell_fwd_",),
+              "spell_bwd (K10, with its weight pack)": ("spell_bwd_", "pack_transpose"),
+              "fbank (K11)": ("fbank_kernel",)}
     split, spans = {}, []
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         spans.append((e.time_range.start, e.time_range.end))
         low = e.name.lower()
-        key = next((g for g, k in groups.items() if k in low), None)
+        key = next((g for g, ks in groups.items() if any(k in low for k in ks)), None)
         if key is None:
             key = ("matmuls (einsums, projections)"
                    if any(s in low for s in ("gemm", "gemv", "cutlass", "sm90", "splitk"))

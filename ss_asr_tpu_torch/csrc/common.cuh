@@ -52,6 +52,14 @@ __device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src, b
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(n));
 }
 
+// 4 bytes global -> shared by cp.async (through L1); with ok false it writes
+// a zero and reads nothing
+__device__ __forceinline__ void cp_async4_zfill(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = ok ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src), "r"(n));
+}
+
 // The cluster barrier in its two halves: the arrive releases this thread's
 // writes (the remote ones too) to the cluster, the wait acquires the others'.
 __device__ __forceinline__ void cluster_arrive() {

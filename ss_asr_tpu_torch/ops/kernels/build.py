@@ -68,12 +68,13 @@ SIGNATURES = {
     "ss_beam_decode_cluster": [_P] * 19 + [_I] * 8 + [_P] * 11 + [_I, ctypes.c_float, _P, _I, _I,
                                                                   _I, _P],
     # enc, comp, lens, tf, gumbel, teacher_emb, the 10 speller weights,
-    # logits, a, h1s, c1s, h2s, c2s, fed, B, S, F, M, H, V, L, device, stream
-    "ss_spell_fwd": [_P] * 23 + [_I] * 7 + [_I, _P],
+    # logits, a, h1s, c1s, h2s, c2s, fed, g1s, g2s, B, S, F, M, H, V, L, rows,
+    # device, stream
+    "ss_spell_fwd": [_P] * 25 + [_I] * 8 + [_I, _P],
     # enc, comp, dlogits, daext, a, h1s, c1s, h2s, c2s, fed, the speller
-    # weights less ct_b, dg1, dg2, de, dqp, demb, B, S, F, M, H, V, L, device,
-    # stream
-    "ss_spell_bwd": [_P] * 24 + [_I] * 7 + [_I, _P],
+    # weights less ct_b, g1s, g2s, wt1, wt2, dg1, dg2, de, dqp, demb, B, S, F,
+    # M, H, V, L, rows, device, stream
+    "ss_spell_bwd": [_P] * 28 + [_I] * 8 + [_I, _P],
     # yp, wbasis_il, mel, out, B, Np, nf, n_fft, hop, n_bins, kpad, ncols,
     # n_mels, log_eps, device, stream
     "ss_fbank": [_P] * 4 + [_I] * 9 + [ctypes.c_float, _I, _P],

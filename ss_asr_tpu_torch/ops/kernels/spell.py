@@ -13,10 +13,20 @@ kernel (or raises), a CPU tensor runs ``spell_fwd_plain`` /
 ``spell_bwd_plain``, the step loops in PyTorch ops that the kernels are held
 against.  The forward returns the seven streams of the TPU kernel, each
 ``[L, B, .]``: logits, attention weights, h1, c1, h2, c2 and the embedding
-fed after each step.  The random numbers are inputs: ``tf_draws [L]`` (1 =
+fed after each step; with ``with_gates`` also the two cells' gate
+pre-activations ``[L, B, 4H]``, which ``spell_bwd`` takes instead of
+recomputing them.  The random numbers are inputs: ``tf_draws [L]`` (1 =
 feed the teacher at that step, one draw shared by the batch) and ``gumbel
 [L, B, V]`` (noise added to the logits before the sampling argmax); zero
 draws and zero noise give greedy feedback.
+
+On the card both kernels have two routes, which ``spell_route`` picks from
+the shape alone: the cluster route (a thread-block cluster of H / 32 CTAs
+per tile of R batch rows, each CTA streaming its 128 gate columns of the
+cell weights once a step for all R rows; ``LAUNCHES["spell_fwd_cluster"]``
+/ ``["spell_bwd_cluster"]`` count it) and, for shapes it does not serve,
+the one-row kernels (a block per batch row).  On the cluster route the
+forward writes the gates and the backward needs them.
 
 ``SpellCore`` is the differentiable loop (the port of ``_spell_core`` /
 ``_spell_fwd`` / ``_spell_bwd``): its forward is ``spell_fwd``, its backward
@@ -27,7 +37,7 @@ direct ``spell_fwd`` call on CUDA tensors that need a gradient raises.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -35,19 +45,107 @@ from ss_asr_tpu_torch.models import las
 from ss_asr_tpu_torch.ops import rnn
 from ss_asr_tpu_torch.ops.kernels import build
 from ss_asr_tpu_torch.ops.kernels.decode import kernel_operand, speller_operands
+from ss_asr_tpu_torch.ops.kernels.lstm import CARD_CLUSTERS, SMEM_BYTES
 from ss_asr_tpu_torch.vocab import SOS_ID
 
-#: kernel launches made by ``spell_fwd`` / ``spell_bwd`` on CUDA tensors
-LAUNCHES = {"spell_fwd": 0, "spell_bwd": 0}
+#: kernel launches made by ``spell_fwd`` / ``spell_bwd`` on CUDA tensors;
+#: ``spell_fwd_cluster`` / ``spell_bwd_cluster`` count those that took the
+#: cluster route
+LAUNCHES = {"spell_fwd": 0, "spell_fwd_cluster": 0, "spell_bwd": 0, "spell_bwd_cluster": 0}
 
 Streams = Tuple[torch.Tensor, ...]
+
+#: the cluster route's CTA: threads, warps, the units and gate columns it
+#: owns (``kSpThreads``, ``kSpUnits`` in ``csrc/speller.cuh``), and the tile
+#: heights (batch rows a cluster) the kernels are written for
+SP_THREADS = 512
+SP_WARPS = SP_THREADS // 32
+SP_UNITS = 32
+SP_COLS = 4 * SP_UNITS
+TILE_ROWS = (4, 5, 6, 8)
+
+
+def _r4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def spell_fwd_smem_bytes(H: int, F: int, M: int, S: int, V: int, R: int) -> int:
+    """Shared memory of one CTA of K9's cluster route (``fwd_plan`` in
+    ``csrc/spell_fwd.cu``): h1 and h2 double-buffered, the fed embedding, the
+    gathered context, query and energies, the own cell carries, the warps'
+    gate partials, the small products' partials, the own columns' gates, the
+    logits and the step's noise, the resident ct_w, ct_b, phi's own columns
+    and the own columns' biases, and three [R] index arrays."""
+    Mc = M // (H // 32)
+    floats = (2 * _r4(2 * R * H) + _r4(R * H) + _r4(R * F) + _r4(R * M) + _r4(R * S)
+              + 2 * _r4(R * SP_UNITS) + _r4(SP_WARPS * R * SP_COLS)
+              + _r4(SP_THREADS * max(R, 4)) + R * SP_COLS + 2 * _r4(R * V) + _r4(H * V) + _r4(V)
+              + _r4(H * Mc) + 2 * SP_COLS + 3 * _r4(R))
+    return 4 * floats
+
+
+def _tprod_floats(K: int, R: int) -> int:
+    return max(1, SP_THREADS // (K // 4)) * R * K
+
+
+def spell_bwd_smem_bytes(H: int, F: int, M: int, S: int, V: int, R: int) -> int:
+    """Shared memory of one CTA of K10's cluster route (``bwd_plan`` in
+    ``csrc/spell_bwd.cu``): the step's dlogits, attention weights and their
+    cotangent, h1 entering the step, the own query columns and dqpre, the own
+    gate cotangents, the four carries, the own context columns' cotangent,
+    the transposed products' partials, the small products' partials, the
+    four reduce-scatter slot arrays that every CTA of the cluster writes,
+    the resident own rows of ct_w and own columns of phi, and the step's
+    gates, cell states and daext at the own units."""
+    C = H // 32
+    Fc, Mc = F // C, M // C
+    floats = (_r4(R * V) + 2 * _r4(R * S) + _r4(R * H) + 2 * _r4(R * Mc) + _r4(R * SP_COLS)
+              + _r4(4 * R * SP_UNITS) + _r4(R * Fc)
+              + _r4(max(_tprod_floats(2 * H + F, R), _tprod_floats(2 * H, R)))
+              + _r4(SP_THREADS * max(R, 4)) + _r4(C * R * 2 * SP_UNITS)
+              + _r4(C * R * (2 * SP_UNITS + Fc)) + _r4(C * R * S) + _r4(C * R * SP_UNITS)
+              + _r4(SP_UNITS * V) + _r4(H * (Mc + 1)) + 2 * R * SP_COLS + 4 * R * SP_UNITS
+              + _r4(R * S) + _r4(R))
+    return 4 * floats
+
+
+def cluster_serves(H: int, F: int, M: int, S: int, V: int, R: int) -> bool:
+    """Whether the cluster route of both kernels serves this shape with tiles
+    of R rows: C = H / 32 CTAs, at most 8 (a portable cluster); the context's
+    F and the query's M columns split evenly over the CTAs in float4s; at
+    most 512 logits (one a thread); both CTAs' buffers inside one block's
+    shared memory."""
+    C = H // 32
+    return (H % 32 == 0 and C in (1, 2, 4, 8) and R in TILE_ROWS and F % (4 * C) == 0
+            and F // C <= SP_THREADS and M % (4 * C) == 0 and M // C <= SP_THREADS
+            and 1 <= V <= SP_THREADS and S >= 1
+            and spell_fwd_smem_bytes(H, F, M, S, V, R) <= SMEM_BYTES
+            and spell_bwd_smem_bytes(H, F, M, S, V, R) <= SMEM_BYTES)
+
+
+def spell_route(B: int, H: int, F: int, M: int, S: int, V: int) -> int:
+    """The route of ``spell_fwd`` and ``spell_bwd`` on the card, from the
+    shape alone -> R: the cluster route with tiles of R batch rows (clusters
+    of H / 32 CTAs), R the smallest of 4, 5, 6, 8 that serves and whose
+    clusters are all resident at once on the card (15 clusters of 8 CTAs:
+    B = 16 or 32 take tiles of 4 rows, the TAE's B = 64 tiles of 5), else
+    the largest that serves; or 0, the one-row kernels, where none serves
+    (H not a multiple of 32, H above 256, or buffers past shared memory)."""
+    serving = [R for R in TILE_ROWS if cluster_serves(H, F, M, S, V, R)]
+    if not serving:
+        return 0
+    fit = [R for R in serving if -(-B // R) <= CARD_CLUSTERS[H // 32]]
+    return fit[0] if fit else serving[-1]
 
 
 def spell_fwd_plain(
     model: las.LAS, enc_h: torch.Tensor, comp_h: torch.Tensor, enc_lens: torch.Tensor,
     tf_draws: torch.Tensor, gumbel: torch.Tensor, teacher_emb: torch.Tensor,
+    with_gates: bool = False,
 ) -> Streams:
-    """The forward loop in plain PyTorch -> (logits, a, h1s, c1s, h2s, c2s, fed)."""
+    """The forward loop in plain PyTorch -> (logits, a, h1s, c1s, h2s, c2s,
+    fed), and with ``with_gates`` also the gate pre-activations (g1s, g2s)
+    [L, B, 4H] of the two cells."""
     B, S, _ = enc_h.shape
     L = tf_draws.shape[0]
     dev = enc_h.device
@@ -55,15 +153,21 @@ def spell_fwd_plain(
     state = las.speller_init_state(B, model.cfg, dev, enc_h.dtype)
     sos = torch.full((B,), SOS_ID, dtype=torch.long, device=dev)
     fed = rnn.embed(model.embed, sos)
-    outs = [[] for _ in range(7)]
+    cells = (model.decoder.layer_1, model.decoder.layer_2)
+    outs = [[] for _ in range(9 if with_gates else 7)]
     for t in range(L):
         a, context = las.attention_step(model.attention, comp_h, enc_h, state[0][0], valid)
-        state, dec_out = las.speller_step(model.decoder, torch.cat([fed, context], -1), state)
+        x = torch.cat([fed, context], -1)
+        h_prev = (state[0][0], state[1][0])
+        state, dec_out = las.speller_step(model.decoder, x, state)
+        # the cells' gate pre-activations, as the kernels form them
+        gates = [xin @ cell.weight_ih.t() + h @ cell.weight_hh.t() + (cell.bias_ih + cell.bias_hh)
+                 for cell, xin, h in zip(cells, (x, state[0][0]), h_prev)] if with_gates else []
         logits = rnn.linear(model.char_trans, dec_out)
         sampled = torch.argmax(logits + gumbel[t], dim=-1)
         fed = torch.where(tf_draws[t] > 0.5, teacher_emb[t], rnn.embed(model.embed, sampled))
         (h1, c1), (h2, c2) = state
-        for o, v in zip(outs, (logits, a, h1, c1, h2, c2, fed)):
+        for o, v in zip(outs, (logits, a, h1, c1, h2, c2, fed, *gates)):
             o.append(v)
     return tuple(torch.stack(o) for o in outs)
 
@@ -71,14 +175,19 @@ def spell_fwd_plain(
 def spell_fwd(
     model: las.LAS, enc_h: torch.Tensor, comp_h: torch.Tensor, enc_lens: torch.Tensor,
     tf_draws: torch.Tensor, gumbel: torch.Tensor, teacher_emb: torch.Tensor,
+    with_gates: bool = False, route: Optional[int] = None,
 ) -> Streams:
     """Attend-and-spell forward over L = len(tf_draws) steps.
 
     enc_h [B, S, F], comp_h [B, S, M], enc_lens [B] (clamped to >= 1 here),
     tf_draws [L], gumbel [L, B, V], teacher_emb [L, B, H] (the embedding to
     feed after step t when the draw says teacher).  Returns
-    ``(logits [L,B,V], a [L,B,S], h1s, c1s, h2s, c2s [L,B,H], fed [L,B,H])``.
-    Differentiate through ``SpellCore``."""
+    ``(logits [L,B,V], a [L,B,S], h1s, c1s, h2s, c2s [L,B,H], fed [L,B,H])``
+    and, with ``with_gates``, ``(g1s, g2s)`` [L, B, 4H] after them: the gate
+    pre-activations, which the one-row kernel does not write (``None`` on
+    that route; ``spell_bwd`` recomputes them there).  ``route`` overrides
+    ``spell_route`` on the card (tests).  Differentiate through
+    ``SpellCore``."""
     B, S, F = enc_h.shape
     cfg = model.cfg
     H, M, V = cfg.decoder_state_size, cfg.mlp_out_size, cfg.vocab_size
@@ -90,7 +199,8 @@ def spell_fwd(
             f"enc_lens {tuple(enc_lens.shape)}, tf_draws {tuple(tf_draws.shape)}, gumbel "
             f"{tuple(gumbel.shape)}, teacher_emb {tuple(teacher_emb.shape)} do not fit {cfg}")
     if enc_h.device.type == "cpu":
-        return spell_fwd_plain(model, enc_h, comp_h, enc_lens, tf_draws, gumbel, teacher_emb)
+        return spell_fwd_plain(model, enc_h, comp_h, enc_lens, tf_draws, gumbel, teacher_emb,
+                               with_gates)
     dev = enc_h.device
     if dev.type != "cuda":
         raise ValueError(f"spell_fwd: no kernel for device {dev}")
@@ -98,21 +208,27 @@ def spell_fwd(
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         raise RuntimeError("spell_fwd: the CUDA kernel is invisible to autograd; "
                            "differentiate through SpellCore.apply (las.attend_and_spell does)")
+    R = spell_route(B, H, F, M, S, V) if route is None else route
     ins = [kernel_operand(t, dev) for t in (enc_h, comp_h)]
     lens = torch.clamp(enc_lens.to(device=dev, dtype=torch.int32), min=1).contiguous()
     ins += [lens] + [kernel_operand(t.to(torch.float32), dev)
                      for t in (tf_draws, gumbel, teacher_emb)]
     outs = [torch.empty(L, B, n, dtype=torch.float32, device=dev) for n in (V, S, H, H, H, H, H)]
+    gates = ([torch.empty(L, B, 4 * H, dtype=torch.float32, device=dev) for _ in range(2)]
+             if with_gates and R else [None, None])
+    result = tuple(outs) + (tuple(gates) if with_gates else ())
     if B == 0 or L == 0:
-        return tuple(outs)
+        return result
     lib = build.load_library()
     err = lib.ss_spell_fwd(
         *[t.data_ptr() for t in ins], *[w.data_ptr() for w in speller_operands(model, dev)],
-        *[o.data_ptr() for o in outs], B, S, F, M, H, V, L, dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream)
+        *[o.data_ptr() for o in outs], *[g.data_ptr() if g is not None else None for g in gates],
+        B, S, F, M, H, V, L, R, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "ss_spell_fwd")
     build.count_launch(LAUNCHES, "spell_fwd")
-    return tuple(outs)
+    if R:
+        build.count_launch(LAUNCHES, "spell_fwd_cluster")
+    return result
 
 
 def shifted(streams: Streams, emb: torch.Tensor) -> Streams:
@@ -141,19 +257,23 @@ def _cell_adjoint(dh, dc, acts, tanh_c, c_p):
 def spell_bwd_plain(
     enc_h: torch.Tensor, comp_h: torch.Tensor, dlogits: torch.Tensor, daext: torch.Tensor,
     streams: Streams, W: Sequence[torch.Tensor],
+    gates: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Streams:
     """The backward loop in plain PyTorch -> ``(dg1, dg2 [L,B,4H], de [L,B,S],
-    dqp [L,B,M], demb [L,B,H])``: the TPU kernel ``_bwd_kernel``, with the
-    forward's gates recomputed for all steps at once."""
+    dqp [L,B,M], demb [L,B,H])``: the TPU kernel ``_bwd_kernel``.  The
+    forward's gates are ``gates`` (g1s, g2s) where given (the forward's
+    ``with_gates`` output), else recomputed for all steps at once."""
     phi, wih1, whh1, b1, wih2, whh2, b2, ct_w, _, emb = W
     a, h1s, c1s, h2s, c2s, _ = streams
     h1p, c1p, h2p, c2p, fedp = shifted(streams, emb)
     L, B, H = h1s.shape
     E = fedp.shape[-1]
     q = torch.tanh(h1p @ phi)
-    ctx = torch.einsum("lbs,bsf->lbf", a, enc_h)
-    acts1 = _gate_acts(torch.cat([fedp, ctx], -1) @ wih1 + h1p @ whh1 + b1, H)
-    acts2 = _gate_acts(h1s @ wih2 + h2p @ whh2 + b2, H)
+    if gates is None:
+        ctx = torch.einsum("lbs,bsf->lbf", a, enc_h)
+        gates = (torch.cat([fedp, ctx], -1) @ wih1 + h1p @ whh1 + b1,
+                 h1s @ wih2 + h2p @ whh2 + b2)
+    acts1, acts2 = (_gate_acts(g, H) for g in gates)
     tanh_c1, tanh_c2 = torch.tanh(c1s), torch.tanh(c2s)
     dh1c, dc1c, dh2c, dc2c = (h1s.new_zeros(B, H) for _ in range(4))
     outs = [[] for _ in range(5)]
@@ -177,12 +297,17 @@ def spell_bwd_plain(
 def spell_bwd(
     enc_h: torch.Tensor, comp_h: torch.Tensor, dlogits: torch.Tensor, daext: torch.Tensor,
     streams: Streams, W: Sequence[torch.Tensor],
+    gates: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, route: Optional[int] = None,
 ) -> Streams:
     """Adjoint of the attend-and-spell loop -> ``(dg1, dg2, de, dqp, demb)``
     (shapes in ``spell_bwd_plain``).  dlogits [L, B, V] and daext [L, B, S]
     are the cotangents of the logits and attention maps; ``streams`` are
     ``spell_fwd``'s (a, h1s, c1s, h2s, c2s, fed); W the speller weights in
-    ``x @ W`` layout (``decode.speller_weights``)."""
+    ``x @ W`` layout (``decode.speller_weights``); ``gates`` the forward's
+    (g1s, g2s) from ``spell_fwd(..., with_gates=True)``: the cluster route
+    on the card reads them and raises without them, the one-row kernel
+    recomputes them.  ``route`` overrides ``spell_route`` on the card
+    (tests)."""
     a, h1s = streams[0], streams[1]
     L, B, S = a.shape
     H, F = h1s.shape[2], enc_h.shape[2]
@@ -193,23 +318,39 @@ def spell_bwd(
             f"spell_bwd: enc_h {tuple(enc_h.shape)}, comp_h {tuple(comp_h.shape)}, dlogits "
             f"{tuple(dlogits.shape)}, daext {tuple(daext.shape)} do not fit the streams "
             f"[L={L}, B={B}, S={S}, H={H}]")
+    if gates is not None and any(g is None or g.shape != (L, B, 4 * H) for g in gates):
+        raise ValueError(f"spell_bwd: gates must be two [L, B, 4H] = [{L}, {B}, {4 * H}] tensors")
     if enc_h.device.type == "cpu":
-        return spell_bwd_plain(enc_h, comp_h, dlogits, daext, streams, W)
+        return spell_bwd_plain(enc_h, comp_h, dlogits, daext, streams, W, gates)
     dev = enc_h.device
     if dev.type != "cuda":
         raise ValueError(f"spell_bwd: no kernel for device {dev}")
+    R = spell_route(B, H, F, M, S, V) if route is None else route
+    if R and gates is None:
+        raise ValueError("spell_bwd: the cluster route reads the forward's gates; pass "
+                         "gates=spell_fwd(..., with_gates=True)[7:]")
     ins = [kernel_operand(t.detach(), dev)
            for t in (enc_h, comp_h, dlogits, daext, *streams, *W[:8], W[9])]
+    if R:
+        ins += [kernel_operand(g.detach(), dev) for g in gates]
+        scratch = [torch.empty(4 * H, n, dtype=torch.float32, device=dev)
+                   for n in (2 * H + F, 2 * H)]
+    else:
+        ins += [None, None]
+        scratch = [None, None]
     outs = [torch.empty(L, B, n, dtype=torch.float32, device=dev)
             for n in (4 * H, 4 * H, S, M, H)]
     if B == 0 or L == 0:
         return tuple(outs)
     lib = build.load_library()
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = lib.ss_spell_bwd(
-        *[t.data_ptr() for t in ins], *[o.data_ptr() for o in outs], B, S, F, M, H, V, L,
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        *[ptr(t) for t in ins], *[ptr(t) for t in scratch], *[o.data_ptr() for o in outs],
+        B, S, F, M, H, V, L, R, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "ss_spell_bwd")
     build.count_launch(LAUNCHES, "spell_bwd")
+    if R:
+        build.count_launch(LAUNCHES, "spell_bwd_cluster")
     return tuple(outs)
 
 
@@ -228,20 +369,27 @@ class SpellCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, model, enc_h, comp_h, enc_lens, tf_draws, gumbel, teacher_emb, *W):
-        streams = spell_fwd(model, enc_h, comp_h, enc_lens, tf_draws, gumbel, teacher_emb)
-        ctx.save_for_backward(enc_h, comp_h, tf_draws, gumbel, *streams, *W)
+        # the gates only where a backward will read them
+        grad = any(ctx.needs_input_grad)
+        out = spell_fwd(model, enc_h, comp_h, enc_lens, tf_draws, gumbel, teacher_emb,
+                        with_gates=grad)
+        streams, gates = out[:7], out[7:]
+        ctx.has_gates = grad and gates[0] is not None
+        ctx.save_for_backward(enc_h, comp_h, tf_draws, gumbel, *streams, *W,
+                              *(gates if ctx.has_gates else ()))
         return streams[0], streams[1]
 
     @staticmethod
     def backward(ctx, dlogits, da_ext):
         enc_h, comp_h, tf_draws, gumbel, logits, *rest = ctx.saved_tensors
-        streams, W = tuple(rest[:6]), rest[6:]
+        streams, W = tuple(rest[:6]), rest[6:16]
+        gates = tuple(rest[16:]) if ctx.has_gates else None
         phi, wih1, whh1, b1, wih2, whh2, b2, ct_w, ct_b, emb = W
         a, h1s = streams[0], streams[1]
         if da_ext is None:  # a loss that reads no attention map
             da_ext = torch.zeros_like(a)
         dlogits = torch.zeros_like(logits) if dlogits is None else dlogits.contiguous()
-        dg1, dg2, de, dqp, demb = spell_bwd(enc_h, comp_h, dlogits, da_ext, streams, W)
+        dg1, dg2, de, dqp, demb = spell_bwd(enc_h, comp_h, dlogits, da_ext, streams, W, gates)
         h1p, _, h2p, _, fedp = shifted(streams, emb)
         _, B, E = fedp.shape
         V = ct_w.shape[1]

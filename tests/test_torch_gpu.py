@@ -636,6 +636,115 @@ def test_spell_bwd_matches_plain(cuda, tf, sizes):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5, msg=name)
 
 
+#: K9 / K10's cluster route at the flagship width (conf/default.yaml asr.mdl), at
+#: the ASR step's, the TAE step's and the alignment pass's (B, L, S); and a
+#: small width whose cluster has 2 CTAs
+FLAGSHIP = dict(encoder_state_size=256, decoder_state_size=256, mlp_out_size=128, feature_dim=40)
+SMALL = dict(encoder_state_size=16, decoder_state_size=64, mlp_out_size=16, feature_dim=5)
+SPELL_ROUTE_CASES = [(FLAGSHIP, 32, 48, 64), (FLAGSHIP, 64, 48, 48), (FLAGSHIP, 16, 16, 64),
+                     (SMALL, 6, 11, 9)]
+SPELL_ROUTE_IDS = ["asr", "tae", "detail", "small"]
+
+
+def _spell_case(cuda, sizes, B, L, S, seed):
+    """A seeded model, memory and draws at tf 0.9 -> (model, spell_fwd args,
+    the route by shape)."""
+    cfg = las.ASRConfig(**sizes)
+    model, _ = _models(cfg, 8, seed, cuda)
+    g = torch.Generator().manual_seed(seed)
+    enc_h = (torch.randn(B, S, cfg.enc_out_dim, generator=g) * 0.5).to(cuda)
+    enc_lens = torch.randint(1, S + 1, (B,), generator=g, dtype=torch.int32).to(cuda)
+    tf_draws, gumbel = las.draw_scheduled_sampling(L, B, 0.9, cfg, g, device=cuda)
+    ids = torch.randint(0, VOCAB_SIZE, (L, B), generator=g).to(cuda)
+    with torch.no_grad():
+        comp_h = las.attention_precompute(model.attention, enc_h)
+        temb = model.embed.weight[ids]
+    R = kspell.spell_route(B, cfg.decoder_state_size, cfg.enc_out_dim, cfg.mlp_out_size, S,
+                           VOCAB_SIZE)
+    return model, (model, enc_h, comp_h, enc_lens, tf_draws, gumbel, temb), R
+
+
+@pytest.mark.parametrize("route", ["by_shape", "one_row"])
+@pytest.mark.parametrize("sizes,B,L,S", SPELL_ROUTE_CASES, ids=SPELL_ROUTE_IDS)
+def test_spell_fwd_routes_match_plain(cuda, sizes, B, L, S, route):
+    """K9 on the cluster route (the route by shape at every case) and on the
+    one-row kernel: the seven streams, and the cluster route's gates, within
+    1e-4 of spell_fwd_plain; each launch counted on its route."""
+    model, args, R = _spell_case(cuda, sizes, B, L, S, seed=11)
+    assert R in kspell.TILE_ROWS
+    r = R if route == "by_shape" else 0
+    with torch.inference_mode():
+        before = dict(kspell.LAUNCHES)
+        got = kspell.spell_fwd(*args, with_gates=True, route=r)
+        torch.cuda.synchronize()
+        assert kspell.LAUNCHES["spell_fwd"] == before["spell_fwd"] + 1
+        assert kspell.LAUNCHES["spell_fwd_cluster"] == before["spell_fwd_cluster"] + (r > 0)
+        want = kspell.spell_fwd_plain(*args, with_gates=True)
+    names = ("logits", "a", "h1s", "c1s", "h2s", "c2s", "fed", "g1s", "g2s")
+    assert (got[7] is None) == (r == 0)
+    for name, a, b in zip(names, got if r else got[:7], want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0, msg=name)
+
+
+def _rel_l2(a, ref):
+    return float((a.double() - ref).norm() / ref.norm().clamp_min(1e-300))
+
+
+@pytest.mark.parametrize("route", ["by_shape", "one_row"])
+@pytest.mark.parametrize("sizes,B,L,S", [c for c, i in zip(SPELL_ROUTE_CASES, SPELL_ROUTE_IDS)
+                                          if i != "detail"],
+                         ids=[i for i in SPELL_ROUTE_IDS if i != "detail"])
+def test_spell_bwd_routes_match_plain(cuda, sizes, B, L, S, route):
+    """K10 on the cluster route (from K9's gates) and on the one-row kernel:
+    each stream's relative L2 error against a float64 run of the plain
+    version at most 4x the plain float32 version's own, or below 1e-5
+    (ROADMAP section 3); each launch counted on its route."""
+    from ss_asr_tpu_torch.ops.kernels.decode import speller_weights
+
+    model, args, R = _spell_case(cuda, sizes, B, L, S, seed=12)
+    r = R if route == "by_shape" else 0
+    enc_h, comp_h = args[1], args[2]
+    g = torch.Generator().manual_seed(13)
+    dlogits = (torch.randn(L, B, VOCAB_SIZE, generator=g) / B).to(cuda)
+    daext = (torch.randn(L, B, S, generator=g) / B).to(cuda)
+    W = [w.detach() for w in speller_weights(model)]
+    with torch.no_grad():
+        out = kspell.spell_fwd(*args, with_gates=True)
+        streams, gates = out[1:7], out[7:]
+        before = dict(kspell.LAUNCHES)
+        got = kspell.spell_bwd(enc_h, comp_h, dlogits, daext, streams, W,
+                               gates if r else None, route=r)
+        torch.cuda.synchronize()
+        assert kspell.LAUNCHES["spell_bwd"] == before["spell_bwd"] + 1
+        assert kspell.LAUNCHES["spell_bwd_cluster"] == before["spell_bwd_cluster"] + (r > 0)
+        want = kspell.spell_bwd_plain(enc_h, comp_h, dlogits, daext, streams, W)
+        ref = kspell.spell_bwd_plain(enc_h.double(), comp_h.double(), dlogits.double(),
+                                     daext.double(), tuple(s.double() for s in streams),
+                                     [w.double() for w in W])
+    for name, a, b, f64 in zip(("dg1", "dg2", "de", "dqp", "demb"), got, want, ref):
+        k, p = _rel_l2(a, f64), _rel_l2(b, f64)
+        assert k <= 4 * p or k < 1e-5, f"{name}: kernel {k:.3e}, plain float32 {p:.3e}"
+    with pytest.raises(ValueError, match="gates"):
+        kspell.spell_bwd(enc_h, comp_h, dlogits, daext, streams, W, route=R)
+
+
+def test_spellcore_takes_the_cluster_route_at_the_flagship(cuda):
+    """las.attend_and_spell at the ASR step's shape: K9 writes the gates and
+    K10 reads them, both on the cluster route, under SpellCore."""
+    model, args, R = _spell_case(cuda, FLAGSHIP, 32, 48, 64, seed=14)
+    model.train()
+    y = torch.randint(2, VOCAB_SIZE, (32, 49), device=cuda)
+    enc_h = args[1].clone().requires_grad_(True)
+    before = dict(kspell.LAUNCHES)
+    logits, _ = las.attend_and_spell(model, enc_h, args[3], 48, teacher=y, tf_draws=args[4],
+                                     gumbel=args[5])
+    logits.square().mean().backward()
+    torch.cuda.synchronize()
+    for name in ("spell_fwd", "spell_fwd_cluster", "spell_bwd", "spell_bwd_cluster"):
+        assert kspell.LAUNCHES[name] == before[name] + 1, name
+    assert bool(torch.isfinite(enc_h.grad).all())
+
+
 def _train_step_grads(model, x, x_lens, y, tf_draws, gumbel):
     from ss_asr_tpu_torch.train import losses
 
