@@ -17,11 +17,13 @@ Phases, in order; any failure exits non-zero:
      128/64), both directions, ragged lengths including 0 and 1: y and cs
      within 1e-4 of the plain loop;
    * greedy_decode and greedy_decode_lm on listener output (B = 16, S =
-     64): the tokens of the plain decode, except that a row may diverge at
-     a step where the plain decode's top-2 score gap is below 1e-4 (the
-     rest of that row is then not compared); at most 2 such rows of 16;
-     and greedy_decode with a large EOS bias, so every row takes the early
-     exit at step 0;
+     64), each launch on the cluster route (its own launch counter): the
+     tokens of the plain decode, except that a row may diverge at a step
+     where the plain decode's top-2 score gap is below 1e-4 (the rest of
+     that row is then not compared); at most 2 such rows of 16; both with a
+     large EOS bias, so every row takes the early exit at step 0; and the
+     cluster route by shape timed against the one-row kernel at B = 16 and
+     the server's B = 8;
    * beam_decode and beam_decode_lm (K = 3 and 8, B = 16, S = 64) against
      beam_scan_plain: tokens and parents by the same near-tie rule (the
      gap is the smallest between neighbours among the K + 1 best
@@ -82,7 +84,8 @@ Phases, in order; any failure exits non-zero:
    max_batch 8, greedy), and concurrent POST /transcribe requests with
    seeded synthetic 1-5 s WAVs must all answer 200 with a text equal to a
    direct ``Transcriber.transcribe_signal_batch`` of the same signals; then
-   again with the LM at lm_weight 0.5.
+   again with the LM at lm_weight 0.5.  Every greedy launch there takes the
+   cluster route.
 5. Serving under conf/default.yaml's decode settings (beam 3; with the LM,
    weight 0.5): the same concurrent requests without and with the LM, then
    with the LM ``?detail=1&nbest=3``, ``?long=1`` on a seeded 45 s signal,
@@ -482,64 +485,108 @@ def listener_memory(torch, rng, model, batch):
     return enc_h, comp_h, enc_lens
 
 
+def greedy_launch(torch, kdec, name, *args, route=None):
+    """One ``kdec.greedy_decode(*args, route=route)`` with the launch
+    counters zeroed just before and read just after: one launch, on the
+    cluster route unless ``route`` is 0 (the one-row kernel); the route by
+    shape (None) must take the cluster at every flagship greedy shape ->
+    the raw tokens."""
+    zero_launches()
+    toks = kdec.greedy_decode(*args, route=route)
+    torch.cuda.synchronize()
+    took = read_launches()
+    if took[name] != 1 or took[f"{name}_cluster"] != int(route != 0):
+        fail(f"{name} route {route}: launches {took}, not one on the "
+             f"{'one-row kernel' if route == 0 else 'cluster route'}")
+    return toks
+
+
+def check_greedy_routes(torch, kdec, name, m, mem, lm_, tag):
+    """The tokens of the route by shape and of the one-row kernel against
+    greedy_decode_plain on ``m, *mem`` over MAX_STEPS steps, by the
+    near-tie rule -> (the tokens by shape, their near-tie rows, the largest
+    token-id difference over the compared steps of either route)."""
+    with torch.inference_mode():
+        want = kdec.greedy_decode_plain(m, *mem, MAX_STEPS, lm_, 0.5)
+        gaps = plain_gaps(torch, m, *mem, want, lm_, 0.5)
+        got = {r: greedy_launch(torch, kdec, name, m, *mem, MAX_STEPS, lm_, 0.5, route=r)
+               for r in (None, 0)}
+    want_np, err, near = want.cpu().numpy(), 0, 0
+    for r, toks in got.items():
+        got_np = toks.cpu().numpy()
+        n, _, compared = compare_tokens(
+            f"{name} {tag} B={mem[0].shape[0]} {'by shape' if r is None else 'route 0'}",
+            got_np, want_np, gaps)
+        near = n if r is None else near
+        # token ids, over the compared positions: 0 when they all agree
+        err = max(err, int(abs(got_np.astype("int64") - want_np.astype("int64"))[compared].max()))
+    return got[None].cpu().numpy(), near, err
+
+
 def check_decode(torch, rng, model, lm):
-    from ss_asr_tpu_torch.models import las
+    """K6 / K7 against greedy_decode_plain on the seeded listener memory,
+    the route by shape (the cluster) and the one-row kernel alike; the early
+    exit; and, with an EOS bias of -50 over all MAX_STEPS steps at B = 16
+    and the server's B = 8, both routes checked again and timed."""
     from ss_asr_tpu_torch.ops.kernels import decode as kdec
     from ss_asr_tpu_torch.vocab import EOS_ID
 
     enc_h, comp_h, enc_lens = listener_memory(torch, rng, model, B)
     ws, lm_ws = kdec.speller_operands(model, enc_h.device), kdec.lm_operands(lm, enc_h.device)
+    mem = (enc_h, comp_h, enc_lens)
     out = {}
+    for name, use_lm in (("greedy_decode", False), ("greedy_decode_lm", True)):
+        got_np, near, err = check_greedy_routes(torch, kdec, name, model, mem,
+                                                lm if use_lm else None, "seeded")
+        ends = [(r == EOS_ID).nonzero()[0] for r in got_np]
+        steps = max(int(e[0]) + 1 if e.size else MAX_STEPS for e in ends)
+        print(f"{name} B={B} S={enc_h.shape[1]} max_steps={MAX_STEPS}, seeded weights: "
+              f"{steps} steps", flush=True)
+        out[name] = {"max_abs_err": err, "near_tie_rows": near}
+
+    biased = {bias: eos_biased(torch, model, bias) for bias in (50.0, -50.0)}
     for name, use_lm in (("greedy_decode", False), ("greedy_decode_lm", True)):
         lm_ = lm if use_lm else None
         with torch.inference_mode():
-            got = kdec.greedy_decode(model, enc_h, comp_h, enc_lens, MAX_STEPS, lm_, 0.5)
-            torch.cuda.synchronize()
-            want = kdec.greedy_decode_plain(model, enc_h, comp_h, enc_lens, MAX_STEPS, lm_, 0.5)
-            gaps = plain_gaps(torch, model, enc_h, comp_h, enc_lens, want, lm_, 0.5)
-            got_np, want_np = got.cpu().numpy(), want.cpu().numpy()
-            near, _, compared = compare_tokens(name, got_np, want_np, gaps)
-            k_ms = cuda_ms(torch, lambda: kdec.greedy_decode(
-                model, enc_h, comp_h, enc_lens, MAX_STEPS, lm_, 0.5))
-            p_ms = cuda_ms(torch, lambda: kdec.greedy_decode_plain(
-                model, enc_h, comp_h, enc_lens, MAX_STEPS, lm_, 0.5), reps=3)
-        ends = [(r == EOS_ID).nonzero()[0] for r in got_np]
-        steps = max(int(e[0]) + 1 if e.size else MAX_STEPS for e in ends)
-        # token ids, over the compared positions: 0 when they all agree
-        err = int(abs(got_np.astype("int64") - want_np.astype("int64"))[compared].max())
-        print(f"{name} B={B} S={enc_h.shape[1]} max_steps={MAX_STEPS}, seeded weights "
-              f"({steps} steps): kernel {k_ms:.3f} ms plain {p_ms:.3f} ms", flush=True)
-        out[name] = {"max_abs_err": err, "ms": k_ms,
-                     "plain_ms": p_ms, "near_tie_rows": near}
-
-    biased = {bias: eos_biased(torch, model, bias) for bias in (50.0, -50.0)}
-    with torch.inference_mode():
-        got = kdec.greedy_decode(biased[50.0], enc_h, comp_h, enc_lens, MAX_STEPS).cpu().numpy()
-        want = kdec.greedy_decode_plain(biased[50.0], enc_h, comp_h, enc_lens,
-                                        MAX_STEPS).cpu().numpy()
-    if not ((got == want).all() and (got[:, 0] == EOS_ID).all() and (got[:, 1:] == 0).all()):
-        fail("greedy_decode early exit: tokens differ from the plain decode")
-    print("greedy_decode early exit (EOS bias 50): every row EOS at step 0, then SOS; "
-          "equal to the plain decode", flush=True)
+            got = greedy_launch(torch, kdec, name, biased[50.0], *mem, MAX_STEPS, lm_,
+                                0.5).cpu().numpy()
+            want = kdec.greedy_decode_plain(biased[50.0], *mem, MAX_STEPS, lm_, 0.5).cpu().numpy()
+        if not ((got == want).all() and (got[:, 0] == EOS_ID).all() and (got[:, 1:] == 0).all()):
+            fail(f"{name} early exit: tokens differ from the plain decode")
+        print(f"{name} early exit (EOS bias 50), cluster route: every row EOS at step 0, then "
+              "SOS; equal to the plain decode", flush=True)
 
     # per-step cost: an EOS bias of -50 keeps every row decoding all MAX_STEPS
+    cfg = model.cfg
     for name, use_lm in (("greedy_decode", False), ("greedy_decode_lm", True)):
         m, lm_ = biased[-50.0], (lm if use_lm else None)
-        with torch.inference_mode():
-            k_ms = cuda_ms(torch, lambda: kdec.greedy_decode(
-                m, enc_h, comp_h, enc_lens, MAX_STEPS, lm_, 0.5))
-            p_ms = cuda_ms(torch, lambda: kdec.greedy_decode_plain(
-                m, enc_h, comp_h, enc_lens, MAX_STEPS, lm_, 0.5), reps=3)
-            toks = kdec.greedy_decode(m, enc_h, comp_h, enc_lens, MAX_STEPS, lm_, 0.5)
-        if bool((toks == EOS_ID).any()):
-            fail(f"{name}: an EOS bias of -50 still emitted EOS")
-        print(f"{name} full {MAX_STEPS} steps B={B} S={enc_h.shape[1]}: kernel {k_ms:.3f} ms "
-              f"({1e3 * k_ms / MAX_STEPS:.1f} us/step), plain {p_ms:.3f} ms "
-              f"({1e3 * p_ms / MAX_STEPS:.1f} us/step)", flush=True)
+        for Bn in (B, N_REQUESTS):
+            sub = tuple(t[:Bn].contiguous() for t in mem)
+            by_shape = kdec.greedy_route(Bn, cfg.decoder_state_size, cfg.enc_out_dim,
+                                         cfg.mlp_out_size, sub[0].shape[1], cfg.vocab_size,
+                                         lm.cfg.hidden_size if use_lm else 0)
+            toks, _, err = check_greedy_routes(torch, kdec, name, m, sub, lm_, "EOS bias -50")
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+            if bool((toks == EOS_ID).any()):
+                fail(f"{name}: an EOS bias of -50 still emitted EOS")
+            with torch.inference_mode():
+                times = {r: cuda_ms(torch, lambda: kdec.greedy_decode(
+                    m, *sub, MAX_STEPS, lm_, 0.5, route=r)) for r in (by_shape, 0)}
+                if Bn == B:
+                    p_ms = cuda_ms(torch, lambda: kdec.greedy_decode_plain(
+                        m, *sub, MAX_STEPS, lm_, 0.5), reps=3)
+            print(f"{name} full {MAX_STEPS} steps B={Bn} S={sub[0].shape[1]}: " + ", ".join(
+                f"route {r}{' (by shape)' if r == by_shape else ' (one-row kernel)'} {ms:.3f} ms "
+                f"({1e3 * ms / MAX_STEPS:.1f} us/step)" for r, ms in times.items())
+                + (f", plain {p_ms:.3f} ms ({1e3 * p_ms / MAX_STEPS:.1f} us/step)"
+                   if Bn == B else ""), flush=True)
+            if Bn == B:
+                k_ms = times[by_shape]
         # all MAX_STEPS steps ran: what this run's data needed
         b_ms, b_by = bound(
             B * MAX_STEPS * speller_row_ops(ws, enc_h.shape[1], lm_ws if use_lm else None),
-            nbytes(enc_h, comp_h, enc_lens, toks, *ws, *(lm_ws if use_lm else ())))
+            nbytes(enc_h, comp_h, enc_lens, *ws, *(lm_ws if use_lm else ()))
+            + 4 * B * MAX_STEPS)  # the int32 tokens
         out[name].update(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
     return out
 
@@ -876,8 +923,8 @@ def read_launches():
 
 #: the kernels with a cluster route, and the counter of their cluster launches
 CLUSTER_COUNTERS = {name: f"{name}_cluster"
-                    for name in ("lstm_fwd", "lstm_bwd", "beam_decode", "beam_decode_lm",
-                                 "spell_fwd", "spell_bwd")}
+                    for name in ("lstm_fwd", "lstm_bwd", "greedy_decode", "greedy_decode_lm",
+                                 "beam_decode", "beam_decode_lm", "spell_fwd", "spell_bwd")}
 
 
 def require_cluster_route(path, launches):
@@ -1480,7 +1527,7 @@ def profile_steps(torch, step, n):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     groups = {"lstm_fwd (K2)": ("lstm_fwd_",), "lstm_bwd (K3)": ("lstm_bwd_",),
-              "greedy_decode (K6 / K7)": ("greedy_decode_kernel",),
+              "greedy_decode (K6 / K7)": ("greedy_decode_kernel", "greedy_cluster_kernel"),
               "beam_decode (K8)": ("beam_",),
               "spell_fwd (K9)": ("spell_fwd_",),
               "spell_bwd (K10, with its weight pack)": ("spell_bwd_", "pack_transpose"),

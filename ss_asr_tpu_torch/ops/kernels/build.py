@@ -52,11 +52,11 @@ SIGNATURES = {
     # H, cluster, rows, device, resident (int*)
     "ss_lstm_bwd_resident_clusters": [_I, _I, _I, _I, _P],
     # enc, comp, lens, phi, wih1, whh1, b1, wih2, whh2, b2, ct_w, ct_b, emb,
-    # out, B, S, F, M, H, V, max_steps, device, stream
-    "ss_greedy_decode": [_P] * 14 + [_I] * 8 + [_P],
-    # ... the same, then lm_emb, g1 (wih, whh, bih, bhh), g2 (...), lm_w,
-    # lm_b, HL, lm_weight, device, stream
-    "ss_greedy_decode_lm": [_P] * 14 + [_I] * 7 + [_P] * 11 + [_I, ctypes.c_float, _I, _P],
+    # out, B, S, F, M, H, V, max_steps, rows, device, stream
+    "ss_greedy_decode": [_P] * 14 + [_I] * 9 + [_P],
+    # ... the same up to max_steps, then lm_emb, g1 (wih, whh, bih, bhh), g2
+    # (...), lm_w, lm_b, HL, lm_weight, rows, device, stream
+    "ss_greedy_decode_lm": [_P] * 14 + [_I] * 7 + [_P] * 11 + [_I, ctypes.c_float, _I, _I, _P],
     # enc, comp, lens, the 10 speller weights, toks, parents, scores, done,
     # hyp_len, att (scratch), B, S, F, M, H, V, K, max_steps, device, stream
     "ss_beam_decode": [_P] * 19 + [_I] * 8 + [_I, _P],

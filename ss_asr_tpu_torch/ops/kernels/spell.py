@@ -37,7 +37,7 @@ direct ``spell_fwd`` call on CUDA tensors that need a gradient raises.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -45,7 +45,9 @@ from ss_asr_tpu_torch.models import las
 from ss_asr_tpu_torch.ops import rnn
 from ss_asr_tpu_torch.ops.kernels import build
 from ss_asr_tpu_torch.ops.kernels.decode import kernel_operand, speller_operands
-from ss_asr_tpu_torch.ops.kernels.lstm import CARD_CLUSTERS, SMEM_BYTES
+from ss_asr_tpu_torch.ops.kernels.lstm import SMEM_BYTES
+from ss_asr_tpu_torch.ops.kernels.speller_cluster import (SP_COLS, SP_THREADS, SP_UNITS, SP_WARPS,
+                                                          cluster_shape_serves, r4, tile_route)
 from ss_asr_tpu_torch.vocab import SOS_ID
 
 #: kernel launches made by ``spell_fwd`` / ``spell_bwd`` on CUDA tensors;
@@ -55,18 +57,8 @@ LAUNCHES = {"spell_fwd": 0, "spell_fwd_cluster": 0, "spell_bwd": 0, "spell_bwd_c
 
 Streams = Tuple[torch.Tensor, ...]
 
-#: the cluster route's CTA: threads, warps, the units and gate columns it
-#: owns (``kSpThreads``, ``kSpUnits`` in ``csrc/speller.cuh``), and the tile
-#: heights (batch rows a cluster) the kernels are written for
-SP_THREADS = 512
-SP_WARPS = SP_THREADS // 32
-SP_UNITS = 32
-SP_COLS = 4 * SP_UNITS
+#: the tile heights (batch rows a cluster) the cluster routes are written for
 TILE_ROWS = (4, 5, 6, 8)
-
-
-def _r4(n: int) -> int:
-    return (n + 3) // 4 * 4
 
 
 def spell_fwd_smem_bytes(H: int, F: int, M: int, S: int, V: int, R: int) -> int:
@@ -77,10 +69,10 @@ def spell_fwd_smem_bytes(H: int, F: int, M: int, S: int, V: int, R: int) -> int:
     logits and the step's noise, the resident ct_w, ct_b, phi's own columns
     and the own columns' biases, and three [R] index arrays."""
     Mc = M // (H // 32)
-    floats = (2 * _r4(2 * R * H) + _r4(R * H) + _r4(R * F) + _r4(R * M) + _r4(R * S)
-              + 2 * _r4(R * SP_UNITS) + _r4(SP_WARPS * R * SP_COLS)
-              + _r4(SP_THREADS * max(R, 4)) + R * SP_COLS + 2 * _r4(R * V) + _r4(H * V) + _r4(V)
-              + _r4(H * Mc) + 2 * SP_COLS + 3 * _r4(R))
+    floats = (2 * r4(2 * R * H) + r4(R * H) + r4(R * F) + r4(R * M) + r4(R * S)
+              + 2 * r4(R * SP_UNITS) + r4(SP_WARPS * R * SP_COLS)
+              + r4(SP_THREADS * max(R, 4)) + R * SP_COLS + 2 * r4(R * V) + r4(H * V) + r4(V)
+              + r4(H * Mc) + 2 * SP_COLS + 3 * r4(R))
     return 4 * floats
 
 
@@ -99,26 +91,21 @@ def spell_bwd_smem_bytes(H: int, F: int, M: int, S: int, V: int, R: int) -> int:
     gates, cell states and daext at the own units."""
     C = H // 32
     Fc, Mc = F // C, M // C
-    floats = (_r4(R * V) + 2 * _r4(R * S) + _r4(R * H) + 2 * _r4(R * Mc) + _r4(R * SP_COLS)
-              + _r4(4 * R * SP_UNITS) + _r4(R * Fc)
-              + _r4(max(_tprod_floats(2 * H + F, R), _tprod_floats(2 * H, R)))
-              + _r4(SP_THREADS * max(R, 4)) + _r4(C * R * 2 * SP_UNITS)
-              + _r4(C * R * (2 * SP_UNITS + Fc)) + _r4(C * R * S) + _r4(C * R * SP_UNITS)
-              + _r4(SP_UNITS * V) + _r4(H * (Mc + 1)) + 2 * R * SP_COLS + 4 * R * SP_UNITS
-              + _r4(R * S) + _r4(R))
+    floats = (r4(R * V) + 2 * r4(R * S) + r4(R * H) + 2 * r4(R * Mc) + r4(R * SP_COLS)
+              + r4(4 * R * SP_UNITS) + r4(R * Fc)
+              + r4(max(_tprod_floats(2 * H + F, R), _tprod_floats(2 * H, R)))
+              + r4(SP_THREADS * max(R, 4)) + r4(C * R * 2 * SP_UNITS)
+              + r4(C * R * (2 * SP_UNITS + Fc)) + r4(C * R * S) + r4(C * R * SP_UNITS)
+              + r4(SP_UNITS * V) + r4(H * (Mc + 1)) + 2 * R * SP_COLS + 4 * R * SP_UNITS
+              + r4(R * S) + r4(R))
     return 4 * floats
 
 
 def cluster_serves(H: int, F: int, M: int, S: int, V: int, R: int) -> bool:
     """Whether the cluster route of both kernels serves this shape with tiles
-    of R rows: C = H / 32 CTAs, at most 8 (a portable cluster); the context's
-    F and the query's M columns split evenly over the CTAs in float4s; at
-    most 512 logits (one a thread); both CTAs' buffers inside one block's
-    shared memory."""
-    C = H // 32
-    return (H % 32 == 0 and C in (1, 2, 4, 8) and R in TILE_ROWS and F % (4 * C) == 0
-            and F // C <= SP_THREADS and M % (4 * C) == 0 and M // C <= SP_THREADS
-            and 1 <= V <= SP_THREADS and S >= 1
+    of R rows: ``cluster_shape_serves``, and both CTAs' buffers inside one
+    block's shared memory."""
+    return (R in TILE_ROWS and cluster_shape_serves(H, F, M, S, V)
             and spell_fwd_smem_bytes(H, F, M, S, V, R) <= SMEM_BYTES
             and spell_bwd_smem_bytes(H, F, M, S, V, R) <= SMEM_BYTES)
 
@@ -131,11 +118,7 @@ def spell_route(B: int, H: int, F: int, M: int, S: int, V: int) -> int:
     B = 16 or 32 take tiles of 4 rows, the TAE's B = 64 tiles of 5), else
     the largest that serves; or 0, the one-row kernels, where none serves
     (H not a multiple of 32, H above 256, or buffers past shared memory)."""
-    serving = [R for R in TILE_ROWS if cluster_serves(H, F, M, S, V, R)]
-    if not serving:
-        return 0
-    fit = [R for R in serving if -(-B // R) <= CARD_CLUSTERS[H // 32]]
-    return fit[0] if fit else serving[-1]
+    return tile_route(B, H, [R for R in TILE_ROWS if cluster_serves(H, F, M, S, V, R)])
 
 
 def spell_fwd_plain(

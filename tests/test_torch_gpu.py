@@ -27,8 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (FBANK_LIN_TOL, FBANK_LOG_TOL, anchored_losses, aux_trainer, fbank_errors,
-                        frontier_gaps, replay_frontier)
+from chip_smoke import (FBANK_LIN_TOL, FBANK_LOG_TOL, anchored_losses, aux_trainer, compare_tokens,
+                        eos_biased, fbank_errors, frontier_gaps, plain_gaps, replay_frontier)
 from ss_asr_tpu_torch import convert
 from ss_asr_tpu_torch.api import Transcriber
 from ss_asr_tpu_torch.models import charlm, las
@@ -112,6 +112,113 @@ def test_greedy_decode_early_exit(cuda):
         comp_h = las.attention_precompute(model.attention, enc_h)
         got = kdec.greedy_decode(model, enc_h, comp_h, enc_lens, 9).cpu()
     assert (got[:, 0] == EOS_ID).all() and (got[:, 1:] == 0).all()
+
+
+#: conf/default.yaml's asr.mdl widths (speller 2 x 256, attention 128, F = 512)
+GREEDY_FLAGSHIP = dict(encoder_state_size=256, decoder_state_size=256, mlp_out_size=128,
+                       feature_dim=40)
+GREEDY_S = 64
+GREEDY_STEPS = 100
+
+
+def _greedy_case(cuda, sizes, B, seed, lm_hidden=128):
+    """A seeded model and LM, random listener memory [B, GREEDY_S] with
+    ragged lengths (0 and 1 among them) -> (model, lm, (enc_h, comp_h,
+    enc_lens))."""
+    cfg = las.ASRConfig(**sizes)
+    model, lm = _models(cfg, lm_hidden, seed, cuda)
+    g = torch.Generator().manual_seed(seed)
+    enc_h = (torch.randn(B, GREEDY_S, cfg.enc_out_dim, generator=g) * 0.5).to(cuda)
+    lens = torch.randint(0, GREEDY_S + 1, (B,), generator=g, dtype=torch.int32)
+    lens[: min(B, 2)] = torch.tensor([1, 0], dtype=torch.int32)[: min(B, 2)]
+    with torch.no_grad():
+        comp_h = las.attention_precompute(model.attention, enc_h)
+    return model, lm, (enc_h, comp_h, lens.to(cuda))
+
+
+def _greedy_route_of(model, lm_, B):
+    cfg = model.cfg
+    return kdec.greedy_route(B, cfg.decoder_state_size, cfg.enc_out_dim, cfg.mlp_out_size,
+                             GREEDY_S, cfg.vocab_size, lm_.cfg.hidden_size if lm_ else 0)
+
+
+def _check_greedy_route(model, lm_, mem, steps, route):
+    """One greedy_decode on ``route``: one launch counted, on the cluster
+    counter too where route > 0; the tokens those of the plain decode by the
+    smoke's near-tie rule -> the kernel's tokens."""
+    name = "greedy_decode_lm" if lm_ is not None else "greedy_decode"
+    with torch.inference_mode():
+        before = dict(kdec.LAUNCHES)
+        got = kdec.greedy_decode(model, *mem, steps, lm_, 0.5, route=route)
+        torch.cuda.synchronize()
+        assert kdec.LAUNCHES[name] == before[name] + 1
+        assert kdec.LAUNCHES[f"{name}_cluster"] == before[f"{name}_cluster"] + (route > 0)
+        want = kdec.greedy_decode_plain(model, *mem, steps, lm_, 0.5)
+        gaps = plain_gaps(torch, model, *mem, want, lm_, 0.5)
+    compare_tokens(f"{name} route {route}", got.cpu().numpy(), want.cpu().numpy(), gaps)
+    return got
+
+
+@pytest.mark.parametrize("route", ["by_shape", "one_row"])
+@pytest.mark.parametrize("use_lm", [False, True], ids=["greedy", "greedy+lm"])
+@pytest.mark.parametrize("B", [1, 8, 13, 16])
+def test_greedy_routes_match_plain_at_the_flagship(cuda, B, use_lm, route):
+    """K6 / K7 at the flagship width on the cluster route (the route by
+    shape at every B) and on the one-row kernel."""
+    model, lm, mem = _greedy_case(cuda, GREEDY_FLAGSHIP, B, seed=21)
+    lm_ = lm if use_lm else None
+    R = _greedy_route_of(model, lm_, B)
+    assert R in kdec.GREEDY_TILE_ROWS
+    _check_greedy_route(model, lm_, mem, GREEDY_STEPS, R if route == "by_shape" else 0)
+
+
+@pytest.mark.parametrize("use_lm", [False, True], ids=["greedy", "greedy+lm"])
+def test_greedy_cluster_every_tile_height(cuda, use_lm):
+    """A cluster of 2 CTAs (H = 64, the LM's 8 units 4 a CTA) at every tile
+    height, B = 5 a multiple of none but 1: the last tile's padding rows."""
+    sizes = dict(encoder_state_size=16, decoder_state_size=64, mlp_out_size=16, feature_dim=5)
+    model, lm, mem = _greedy_case(cuda, sizes, 5, seed=22, lm_hidden=8)
+    lm_ = lm if use_lm else None
+    cfg = model.cfg
+    for R in kdec.GREEDY_TILE_ROWS:
+        assert kdec.greedy_cluster_serves(64, cfg.enc_out_dim, 16, GREEDY_S, cfg.vocab_size,
+                                          8 if use_lm else 0, R)
+        _check_greedy_route(model, lm_, mem, 40, R)
+
+
+@pytest.mark.parametrize("use_lm", [False, True], ids=["greedy", "greedy+lm"])
+def test_greedy_cluster_route_early_exit(cuda, use_lm):
+    """An EOS bias of +50: every row emits EOS at step 0 and SOS after it,
+    the tiles stopping at once; of -50: no row emits EOS in all steps.
+    Both on the cluster route by shape, equal to the plain decode."""
+    model, lm, mem = _greedy_case(cuda, GREEDY_FLAGSHIP, 13, seed=23)
+    lm_ = lm if use_lm else None
+    R = _greedy_route_of(model, lm_, 13)
+    assert R in kdec.GREEDY_TILE_ROWS
+    with torch.inference_mode():
+        m = eos_biased(torch, model, 50.0)
+        got = kdec.greedy_decode(m, *mem, GREEDY_STEPS, lm_, 0.5).cpu()
+        want = kdec.greedy_decode_plain(m, *mem, GREEDY_STEPS, lm_, 0.5).cpu()
+    assert (got[:, 0] == EOS_ID).all() and (got[:, 1:] == 0).all()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    got = _check_greedy_route(eos_biased(torch, model, -50.0), lm_, mem, GREEDY_STEPS, R)
+    assert not bool((got == EOS_ID).any())
+
+
+def test_greedy_one_row_route_for_shapes_no_cluster_serves(cuda):
+    """H = 96 (3 CTAs) and, at H = 64, an LM of 36 units (not float4s a CTA)
+    take the one-row kernel by shape: counted off the cluster counters."""
+    for sizes, lm_hidden, use_lm in (
+            (dict(encoder_state_size=16, decoder_state_size=96, mlp_out_size=24, feature_dim=5),
+             8, False),
+            (dict(encoder_state_size=16, decoder_state_size=64, mlp_out_size=16, feature_dim=5),
+             36, True)):
+        model, lm, mem = _greedy_case(cuda, sizes, 6, seed=24, lm_hidden=lm_hidden)
+        lm_ = lm if use_lm else None
+        assert _greedy_route_of(model, lm_, 6) == 0
+        _check_greedy_route(model, lm_, mem, 40, 0)
+    with pytest.raises(RuntimeError, match="ss_greedy_decode_lm"):
+        kdec.greedy_decode(model, *mem, 40, lm, 0.5, route=2)
 
 
 @pytest.mark.parametrize("sr", [8000, 16000, 22050])

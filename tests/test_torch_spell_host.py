@@ -21,7 +21,9 @@ import torch
 
 from ss_asr_tpu.ops.pallas import spell as jspell
 from ss_asr_tpu_torch.models import las
+from ss_asr_tpu_torch.ops.kernels import lstm as klstm
 from ss_asr_tpu_torch.ops.kernels import spell as kspell
+from ss_asr_tpu_torch.ops.kernels import speller_cluster as ksc
 from ss_asr_tpu_torch.ops.kernels.decode import speller_weights
 from ss_asr_tpu_torch.vocab import SOS_ID, VOCAB_SIZE
 
@@ -29,8 +31,8 @@ torch.set_num_threads(1)
 
 TOL = 1e-5
 FLAGSHIP = dict(F=512, M=128, S=64, V=VOCAB_SIZE)  # conf/default.yaml's speller and memory
-WARPS = kspell.SP_WARPS
-UNITS = kspell.SP_UNITS
+WARPS = ksc.SP_WARPS
+UNITS = ksc.SP_UNITS
 
 
 # --- the route and the shared-memory plans ---------------------------------
@@ -48,7 +50,7 @@ def test_spell_route_by_shape(B, H, C):
         return
     assert R in kspell.TILE_ROWS and kspell.cluster_serves(H, R=R, **FLAGSHIP)
     assert R == (5 if (H, B) == (256, 64) else 4)
-    assert -(-B // R) <= kspell.CARD_CLUSTERS[C]
+    assert -(-B // R) <= klstm.CARD_CLUSTERS[C]
 
 
 @pytest.mark.parametrize("shape", [dict(B=32, S=64), dict(B=64, S=48), dict(B=16, S=64)],
@@ -60,7 +62,7 @@ def test_cluster_plans_fit_at_the_trained_shapes(shape):
     dims = dict(FLAGSHIP, S=shape["S"])
     for R in kspell.TILE_ROWS:
         for plan in (kspell.spell_fwd_smem_bytes, kspell.spell_bwd_smem_bytes):
-            assert plan(256, R=R, **dims) <= kspell.SMEM_BYTES
+            assert plan(256, R=R, **dims) <= klstm.SMEM_BYTES
     assert kspell.spell_route(shape["B"], 256, **dims) in kspell.TILE_ROWS
 
 
