@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and data-preparation paths once on
-one NVIDIA GPU.
+"""Drive the PyTorch port's serving, training, data-preparation and test paths
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout, one card
 
@@ -79,14 +79,29 @@ Phases, in order; any failure exits non-zero:
    Kernel and plain times are CUDA-event medians after a warm-up; the
    decode kernels are timed over all 200 steps (an EOS bias of -50 keeps
    every row decoding), which is the time the JSON line reports.
-4. Greedy serving: seeded flagship ASR and char-LM checkpoints are written,
-   the port's HTTP server starts in-process in signal mode (sr 22050,
-   max_batch 8, greedy), and concurrent POST /transcribe requests with
-   seeded synthetic 1-5 s WAVs must all answer 200 with a text equal to a
-   direct ``Transcriber.transcribe_signal_batch`` of the same signals; then
-   again with the LM at lm_weight 0.5.  Every greedy launch there takes the
-   cluster route.
-5. Serving under conf/default.yaml's decode settings (beam 3; with the LM,
+4. Data preparation: ``cli.mkdata`` and ``cli.preprocess generic`` as
+   subprocesses on 160 tone utterances at 16 kHz (K11 must launch there;
+   ``index.tsv`` lists the corpus; every fbank equals the plain frontend by
+   K11's rule).
+5. The char-LM at the full width of conf/default.yaml (2 GRU x 128, chunks
+   of 200 characters, B = 128, Adam 1e-4, tf 0.9) on a text corpus of the
+   tone corpus's normalised texts (SOS and EOS included) and seeded
+   sentences of its words (four batches an epoch): one step (the unroll of 200 steps with scheduled
+   sampling, draws from one seeded generator) on the card and on the CPU
+   against a float64 run by the anchored rule of phase 8; 5 timed steps
+   with a profile; ``python -m ss_asr_tpu_torch.cli.train CHARLMTrainer``
+   for 20 epochs, whose last epoch's mean loss per character must be below
+   its first's; ``cli.generate`` and ``cli.lm_predict`` on the trained
+   ``char_lm.npz``.  That LM is the one every later LM Transcriber loads;
+   the seeded random LM serves only the kernel checks of phase 3.
+6. Greedy serving: a seeded flagship ASR checkpoint is written, the port's
+   HTTP server starts in-process in signal mode (sr 22050, max_batch 8,
+   greedy), and concurrent POST /transcribe requests with seeded synthetic
+   1-5 s WAVs must all answer 200 with a text equal to a direct
+   ``Transcriber.transcribe_signal_batch`` of the same signals; then again
+   with the trained LM at lm_weight 0.5.  Every greedy launch there takes
+   the cluster route.
+7. Serving under conf/default.yaml's decode settings (beam 3; with the LM,
    weight 0.5): the same concurrent requests without and with the LM, then
    with the LM ``?detail=1&nbest=3``, ``?long=1`` on a seeded 45 s signal,
    one ``/stream`` session and one ``/reload`` of a new checkpoint; every
@@ -99,7 +114,7 @@ Phases, in order; any failure exits non-zero:
    mode), and the JSON line's launches sum these counts.  After each
    phase's server has stopped, a torch.profiler split of three direct
    batches says where a steady batch's time goes.
-6. The train step at the flagship (B = 32, T = 512 frames from seeded
+8. The train step at the flagship (B = 32, T = 512 frames from seeded
    waveforms, L = 48, conf/default.yaml's Adadelta): an ``ASRTrainer`` on
    the card and one on the CPU (plain versions) take one step on the same
    batch with the same draws, held to a float64 run of the plain versions
@@ -110,31 +125,40 @@ Phases, in order; any failure exits non-zero:
    Adadelta) timed with CUDA events, the launch counters zeroed just
    before and read just after (K2, K3, K9 and K10 must launch, every K2,
    K3, K9 and K10 launch on the cluster route), and a torch.profiler split
-   of 3 steps.
-7. ``python -m ss_asr_tpu_torch.cli.train ASRTrainer`` as a subprocess on a
-   seeded corpus of 40 utterances (40 mels, 300-512 frames, texts up to 48
-   ids), split by ``data.index.make_split`` (90 / 10, seeded) into a train
-   index of one batch and a held-out validation index: 30 steps of the one
-   batch, whose loss must fall, writing
+   of 3 steps.  Then ``python -m ss_asr_tpu_torch.cli.train ASRTrainer``
+   as a subprocess on a seeded corpus of 40 utterances (40 mels, 300-512
+   frames, texts up to 48 ids), split by ``data.index.make_split`` (90 /
+   10, seeded) into a train index of one batch and a held-out validation
+   index: 30 steps of the one batch, whose loss must fall, writing
    ``asr.npz``, ``asr_opt.npz`` and ``tracker.json``; a second invocation
    resumes at step 30.
-8. Data preparation and the semi-supervised trainers: ``cli.mkdata`` and
-   ``cli.preprocess generic`` as subprocesses on 160 tone utterances at
-   16 kHz (K11 must launch there; ``index.tsv`` lists the corpus; every
-   fbank equals the plain frontend by K11's rule).  Then at the full width
-   of conf/default.yaml one TAE step (B = 64), one SAE step (B = 32, T =
-   512) and one ADV D-step and G-step (B = 32): each loss and every
-   gradient on the card against the CPU's plain versions by the
-   float64-anchored rule of phase 6; then timed updates with the launch
-   counters zeroed before and read after (K2 / K3, and K9 / K10 for the
-   TAE, must launch, each on its cluster route), every parameter outside the
-   optimizer's mask
+9. The semi-supervised trainers at the full width of conf/default.yaml:
+   one TAE step (B = 64), one SAE step (B = 32, T = 512) and one ADV
+   D-step and G-step (B = 32): each loss and every gradient on the card
+   against the CPU's plain versions by the float64-anchored rule of phase
+   8; then timed updates with the launch counters zeroed before and read
+   after (K2 / K3, and K9 / K10 for the TAE, must launch, each on its
+   cluster route), every parameter outside the optimizer's mask
    bit-unchanged and every one inside moved.  Then ``cli.train Seed`` as a
    subprocess on the train side of a seeded held-out split of the
-   preprocessed corpus, validating on the other (TAE -> ADV -> SAE, the three ASR
-   relays written) and ``cli.train ASRTrainer`` from the last relay, whose
-   loss must fall.
-9. One JSON line of kernels (launches on the paths above, error, kernel /
+   preprocessed corpus, validating on the other (TAE -> ADV -> SAE, the
+   three ASR relays written) and ``cli.train ASRTrainer`` from the last
+   relay, whose loss must fall.
+10. The tester and the tools: ``cli.train ASRTester`` (in this process, so
+   that the launch counters see it; batches of 8) on the held-out side of
+   that split with the relay ASRTrainer left and the trained LM, greedy
+   without the LM and under conf/default.yaml's decode settings (beam 3 +
+   LM 0.5, step cap 0.25 of the frames): each run's launches counted (K2
+   and K6, or K2 and K8 with the LM, every one on the cluster route), its
+   transcripts equal to direct ``greedy_decode_early_exit`` / ``beam_decode``
+   calls on the same batches, its utt/s, WER and CER printed.  Then a
+   bounded ``cli.train ASRTrainer`` run (200 epochs of the 4 train batches,
+   ``keep_snapshots: 2``) and both tests again: the greedy CER must fall.
+   Then ``cli.pseudolabel`` (beam 3 + LM 0.5, K11, K2, K8 and K9 counted)
+   on 8 held-out wavs, whose kept rows must load through ``ASRDataset``,
+   and ``cli.avg_ckpt`` of the two snapshots, every leaf within half a
+   float32 ulp of the float64 mean.
+11. One JSON line of kernels (launches on the paths above, error, kernel /
    plain / library times, bound), the nvidia-smi line, and last the
    contract line ``{"ok": true, "device": {...}}``.
 """
@@ -189,7 +213,15 @@ STEP_FLOOR = 1e-5  # the train step: card error vs float64 within 4x the CPU's, 
 PRE_UTTS = 160  # utterances of the preprocess phase's corpus (two full groups of 64 and a part)
 PRE_SR = 16000  # its sample rate (the tone corpus is resampled from 8 kHz)
 AUX_STEPS = 5  # timed updates of each auxiliary trainer (the median is reported)
+# seeded draws of the ADV D-step's batch, each compared with float64 (relu_flip_sweep)
+ADV_SEEDS = tuple(range(SEED + 100, SEED + 108))
 SEED_EPOCHS = {"tae": 6, "adv": 2, "sae": 2, "asr": 3}  # epochs per stage of the Seed run
+LM_BATCHES = 4  # the char-LM corpus: this many batches (of 128 chunks of 200 characters) an epoch
+LM_EPOCHS = 20  # epochs of cli.train CHARLMTrainer
+TEST_B = 8  # the tester's batch (the server's)
+EXTRA_EPOCHS = 200  # the bounded ASRTrainer run before the second test: 4 steps an epoch
+PSEUDO_UTTS = 8  # held-out wavs that cli.pseudolabel labels
+PSEUDO_FLOOR = -2.0  # its --min-avg-logprob (the fused score a character: LM 0.5 included)
 
 
 def fail(msg: str) -> None:
@@ -936,13 +968,14 @@ def require_cluster_route(path, launches):
 
 
 @contextlib.contextmanager
-def serving(t, reload_paths=None):
-    """The port's HTTP server over a signal-mode batcher of ``t``, in this
-    process on a free local port -> ``post(path, body) -> (status, json)``."""
+def serving(t, reload_paths=None, sr=SR):
+    """The port's HTTP server over a signal-mode batcher of ``t`` at ``sr``,
+    in this process on a free local port -> ``post(path, body) -> (status,
+    json)``."""
     from ss_asr_tpu_torch.serve import BatchingTranscriber, serve_http
 
     ready = threading.Event()
-    with BatchingTranscriber(t, max_batch=8, max_wait_ms=1000, mode="signal", sr=SR) as bt:
+    with BatchingTranscriber(t, max_batch=8, max_wait_ms=1000, mode="signal", sr=sr) as bt:
         server = serve_http(bt, host="127.0.0.1", port=0, ready_event=ready,
                             reload_paths=reload_paths)
         th = threading.Thread(target=server.serve_forever, daemon=True)
@@ -967,11 +1000,14 @@ def serving(t, reload_paths=None):
             th.join(timeout=30)
 
 
-def serve_phase(torch, tag, t, sigs, need, reload_paths=None, routes=()):
-    """Concurrent POST /transcribe of ``sigs`` against the direct batch,
-    then each route of ``routes``: (name, fn(post), kernels it must
-    launch), fn sending the route's requests and checking each reply
-    against an expectation computed before the server started.
+def serve_phase(torch, tag, t, sigs, need, reload_paths=None, routes=(), sr=SR,
+                min_chars=MAX_STEPS // 4):
+    """Concurrent POST /transcribe of ``sigs`` (WAVs at ``sr``) against the
+    direct batch, the replies at least ``min_chars`` characters long on
+    average (so that the decodes run, not stop at their first step), then
+    each route of ``routes``: (name, fn(post), kernels it must launch), fn
+    sending the route's requests and checking each reply against an
+    expectation computed before the server started.
 
     The launch counters are zeroed just before each path's requests (after
     one warm-up request) and read just after its last reply, so each count
@@ -980,12 +1016,12 @@ def serve_phase(torch, tag, t, sigs, need, reload_paths=None, routes=()):
     batches.  Returns {path: launches}."""
     from ss_asr_tpu_torch.data.audio import read_wav
 
-    bodies = [wav_bytes(s, SR) for s in sigs]
+    bodies = [wav_bytes(s, sr) for s in sigs]
     # the server's signals are the WAVs' int16 samples read back
     signals = [read_wav(io.BytesIO(b))[1] for b in bodies]
-    direct = t.transcribe_signal_batch(signals, sr=SR)
+    direct = t.transcribe_signal_batch(signals, sr=sr)
     launches = {}
-    with serving(t, reload_paths) as post:
+    with serving(t, reload_paths, sr) as post:
         post("/transcribe", bodies[0])  # warm-up: lazy CUDA/cuBLAS set-up, not steady state
         zero_launches()
         t0 = time.perf_counter()
@@ -1002,8 +1038,12 @@ def serve_phase(torch, tag, t, sigs, need, reload_paths=None, routes=()):
             fail(f"{tag}: request {i} answered {status} {obj}")
         if obj["text"] != direct[i]:
             fail(f"{tag}: request {i} text {obj['text']!r} != direct {direct[i]!r}")
-    print(f"{tag}: {len(replies)} requests, all 200, texts equal the direct batch; "
-          f"{secs:.3f} s, {len(replies) / secs:.3f} utt/s", flush=True)
+    chars = statistics.mean(len(o["text"]) for _, o in replies)
+    print(f"{tag}: {len(replies)} requests, all 200, texts equal the direct batch, {chars:.1f} "
+          f"characters a reply (first {replies[0][1]['text'][:40]!r}); {secs:.3f} s, "
+          f"{len(replies) / secs:.3f} utt/s", flush=True)
+    if chars < min_chars:
+        fail(f"{tag}: {chars:.1f} characters a reply, fewer than {min_chars}")
     for path, names in [(tag, need)] + [(f"{tag} {n}", k) for n, _, k in routes]:
         print(f"{path}: launches {launches[path]}", flush=True)
         for name in names:
@@ -1012,7 +1052,7 @@ def serve_phase(torch, tag, t, sigs, need, reload_paths=None, routes=()):
         require_cluster_route(path, launches[path])
     # where a steady batch's time goes: the direct call, outside the launch counts
     print(f"{tag}: one direct batch of {len(signals)} signals, torch.profiler:", flush=True)
-    profile_steps(torch, lambda: t.transcribe_signal_batch(signals, sr=SR), 3)
+    profile_steps(torch, lambda: t.transcribe_signal_batch(signals, sr=sr), 3)
     return launches
 
 
@@ -1875,6 +1915,91 @@ def anchored_losses(torch, tag, trainers, run, pooled=()):
              f"{STEP_FLOOR}: {bad}")
 
 
+def relu_flip_sweep(torch, tag, trainers, draw, seeds):
+    """The ADV D-step's anchored comparison over the seeded draws of
+    ``seeds`` (``draw(rng) -> (x, x_lens, y, y_lens)`` on the card), each
+    draw with its witnesses: the listener's and the text encoder's outputs
+    (the discriminator's inputs) against float64 on the card and the CPU,
+    and the discriminator's ReLU decisions that the card and the CPU take
+    otherwise than float64 (a pre-activation within float32 rounding of 0).
+
+    A ReLU's decision is a discrete choice, as a max-pool's winner is: one
+    flipped unit at one of the ~3,600 positions adds or drops that unit's
+    whole term of the weight gradients (of the order 1 / (positions x
+    sqrt(units)) of their norm).  Where a gradient misses the anchored rule,
+    it is compared again with a float64 run whose ReLUs take the card's
+    decisions; it passes only if the card took a decision float64 did not
+    and it meets the rule against that run.  Every draw's readings are
+    printed."""
+    import numpy as np
+
+    from ss_asr_tpu_torch.train.solver import joint_named_parameters
+
+    def relus(t):
+        return [m for m in t.models["disc"].core if isinstance(m, torch.nn.ReLU)]
+
+    def run(t, dev, x, xl, y, yl, masks=None):
+        """Loss, grads, the outputs and each ReLU call's pre-activation; with
+        ``masks`` the ReLUs output pre-activation x mask (forced decisions)."""
+        pre, forced = [], list(masks) if masks is not None else None
+
+        def hook(_m, inp, out):
+            pre.append(inp[0].detach().cpu().double())
+            if forced is not None:
+                return inp[0] * forced.pop(0).to(inp[0])
+            return None
+
+        handles = [m.register_forward_hook(hook) for m in relus(t)]
+        try:
+            for m in t.models.values():
+                m.zero_grad(set_to_none=True)
+            dt = next(t.models["disc"].parameters()).dtype
+            rl, fl, real, fake = t.d_losses(x.to(dev).to(dt), xl.to(dev), y.to(dev), yl.to(dev),
+                                            t.label_smoothing)
+            (rl + fl).backward()
+        finally:
+            for h in handles:
+                h.remove()
+        grads = {n: p.grad.cpu() for n, p in joint_named_parameters(t.models) if p.grad is not None}
+        return float((rl + fl).detach()), grads, real.detach().cpu(), fake.detach().cpu(), pre
+
+    for seed in seeds:
+        x, xl, y, yl = draw(np.random.default_rng(seed))
+        card, cpu, ref = (run(t, dev, x, xl, y, yl)
+                          for t, dev in zip(trainers, (DEVICE, "cpu", "cpu")))
+        unlike = [(a > 0) != (r > 0) for a, r in zip(card[4], ref[4])]
+        flips = [int(d.sum()) for d in unlike]
+        cflips = [int(((a > 0) != (r > 0)).sum()) for a, r in zip(cpu[4], ref[4])]
+        near = max((float(r[d].abs().max()) for r, d in zip(ref[4], unlike) if d.any()),
+                   default=0.0)
+        errs = {n: (rel_l2(torch, card[1][n], ref[1][n]), rel_l2(torch, cpu[1][n], ref[1][n]))
+                for n in ref[1]}
+        over = [n for n, (k, c) in errs.items() if k > max(ANCHOR_RATIO * c, STEP_FLOOR)]
+        worst = max(errs.items(), key=lambda kv: kv[1][0])
+        line = (f"{tag} seed {seed}: loss card {card[0]:.6f} float64 {ref[0]:.6f}; listener output "
+                f"rel L2 card {rel_l2(torch, card[3], ref[3]):.3e} CPU "
+                f"{rel_l2(torch, cpu[3], ref[3]):.3e}, text encoder card "
+                f"{rel_l2(torch, card[2], ref[2]):.3e} CPU {rel_l2(torch, cpu[2], ref[2]):.3e}; "
+                f"ReLU decisions unlike float64 (layer 1, 2 on text, then speech): card {flips} "
+                f"CPU {cflips}" + (f" (largest float64 |pre-activation| among the card's "
+                                   f"{near:.3e})" if sum(flips) else "")
+                + f"; worst gradient card {worst[1][0]:.3e} CPU {worst[1][1]:.3e} ({worst[0]})")
+        bad = []
+        if over:
+            # float64 again, its ReLUs taking the card's decisions
+            masks = [(a > 0).double() for a in card[4]]
+            _, g_al, _, _, _ = run(trainers[2], "cpu", x, xl, y, yl, masks=masks)
+            al = {n: rel_l2(torch, card[1][n], g_al[n]) for n in over}
+            line += (f"; {len(over)} above the rule: {[f'{n} {errs[n][0]:.3e}' for n in over]}, "
+                     f"against float64 with the card's ReLU decisions worst {max(al.values()):.3e}")
+            bad = [n for n in over if not (sum(flips) and al[n] <= max(ANCHOR_RATIO * errs[n][1],
+                                                                      STEP_FLOOR))]
+        print(line, flush=True)
+        if bad:
+            fail(f"{tag} seed {seed}: card error against float64 above {ANCHOR_RATIO} x the CPU "
+                 f"float32's and {STEP_FLOOR}, not explained by a flipped ReLU: {bad}")
+
+
 def timed_steps(torch, tag, trainer, optims, step, batch, need):
     """AUX_STEPS updates of ``trainer`` on the card, timed with CUDA events,
     the launch counters zeroed just before and read just after: every
@@ -2003,6 +2128,14 @@ def check_aux_trainers(torch, rng, config, asr_tree, tmp):
                                                   y_lens.to(dev), t.label_smoothing)[:2]))
     anchored_losses(torch, f"ADV G-step B={TRAIN_B} T={x.shape[1]}", ts,
                     lambda t, dev: t.g_loss(cast(t, dev), x_lens.to(dev)))
+
+    def adv_draw(r):
+        wave, n, _ = train_batch(torch, r)
+        with torch.no_grad():
+            xs, xls = log_mel_fbank_batch(wave, n, SR)
+        return (xs, xls) + text_batch(torch, r, TRAIN_B, 0.0)[:2]
+
+    relu_flip_sweep(torch, f"ADV D-step sweep B={TRAIN_B}", ts, adv_draw, ADV_SEEDS)
     card = ts[0]
     yd, yld = y.to(DEVICE), y_lens.to(DEVICE)
 
@@ -2083,6 +2216,349 @@ def check_cli_seed(config, idx, tmp):
             and step == len(asr) >= 4 and np.isfinite(asr).all() and last < first):
         fail(f"cli.train ASRTrainer did not start from the relay, or its loss did not fall: "
              f"{asr}, tracker step {step}")
+    return (train, held), os.path.join(ck, "asr.npz")
+
+
+def lm_corpus(rng, idx, batch, chunk):
+    """The char-LM phase's text: the normalised texts of the preprocessed
+    tone corpus (``idx``: SOS + text + EOS, so that the LM learns where a
+    transcript starts and ends, as fusion asks it), then seeded sentences of
+    1-3 words of ``cli.mkdata.WORDS`` (the vocabulary of those texts)
+    normalised alike, up to LM_BATCHES batches of ``batch`` chunks of
+    ``chunk`` characters."""
+    from ss_asr_tpu_torch.cli.mkdata import WORDS
+    from ss_asr_tpu_torch.data.index import load_index
+    from ss_asr_tpu_torch.vocab import normalize_string
+
+    texts = [r["normalized_text"] for r in load_index(idx)]
+    n_corpus, need = len(texts), LM_BATCHES * batch * chunk + 1
+    size = sum(len(t) for t in texts)
+    while size < need:
+        texts.append(normalize_string(" ".join(rng.choice(WORDS, size=int(rng.integers(1, 4)))))[0])
+        size += len(texts[-1])
+    return "".join(texts), n_corpus, len(texts) - n_corpus
+
+
+def run_main(main, argv):
+    """A CLI's ``main(argv)`` in this process (so that the launch counters
+    see its kernels) -> (return value, its standard output)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, out.getvalue()
+
+
+def check_charlm(torch, rng, config, idx, tmp):
+    """The char-LM at conf/default.yaml's width (H = 128, chunks of 200,
+    B = 128, Adam 1e-4, tf 0.9) on a text corpus from the tone corpus's
+    texts: one step on the card and on the CPU against float64 with the
+    same seeded draws (the anchored rule); AUX_STEPS timed steps with a
+    profile; ``python -m ss_asr_tpu_torch.cli.train CHARLMTrainer`` for
+    LM_EPOCHS epochs, whose last epoch's mean loss per character must be
+    below its first's; then ``cli.generate`` and ``cli.lm_predict`` on the
+    trained ``char_lm.npz``.  Returns its path."""
+    import numpy as np
+    import yaml
+
+    from ss_asr_tpu_torch import convert
+    from ss_asr_tpu_torch.cli import generate, lm_predict
+    from ss_asr_tpu_torch.data.lm_dataset import LMDataset
+    from ss_asr_tpu_torch.models import charlm, las
+    from ss_asr_tpu_torch.train.lm_trainer import CHARLMTrainer
+    from ss_asr_tpu_torch.train.solver import make_paras
+    from ss_asr_tpu_torch.utils.checkpoint import save_pytree
+
+    c = copy.deepcopy(config)
+    lmc = c["char_lm"]
+    B, L = lmc["train_batch_size"], lmc["chunk_size"]
+    text, n_corpus, n_more = lm_corpus(rng, idx, B, L)
+    corpus = os.path.join(tmp, "lm_corpus.txt")
+    with open(corpus, "w", encoding="utf-8") as f:
+        f.write(text)
+    lmc.update(train_index=corpus, n_epochs=LM_EPOCHS, logging_step=1, valid_step=20,
+               save_step=10**6)
+    ds = LMDataset(corpus, L)
+    per = len(ds) // B
+    print(f"char-LM corpus: {len(text)} characters ({n_corpus} texts of the tone corpus and "
+          f"{n_more} seeded sentences of its words), {len(ds)} chunks of {L}, {per} batches of "
+          f"{B} an epoch", flush=True)
+    if per < 2:
+        fail(f"char-LM corpus: {per} batches an epoch")
+    cfg = charlm.CharLMConfig.from_dict(lmc["mdl"])
+    tree = convert.init_charlm_numpy(SEED + 6, cfg)
+
+    def lm_trainer(name, dev):
+        paras = make_paras(name=name, logdir=os.path.join(tmp, "runs"),
+                           ckpdir=os.path.join(tmp, "result"), seed=SEED, verbose=False)
+        save_pytree(os.path.join(tmp, "result", name, "char_lm.npz"), tree)
+        t = CHARLMTrainer(c, paras, device=dev)
+        t.load_data()
+        t.set_model()
+        return t
+
+    ts = [lm_trainer(f"lm_{tag}", dev) for tag, dev in (("card", DEVICE), ("cpu", "cpu"),
+                                                        ("f64", "cpu"))]
+    ts[2].lm.double()
+    y = torch.from_numpy(next(ds.iter_batches(B, seed=SEED))[1]).long()
+    gen = torch.Generator().manual_seed(SEED)
+    tf_draws, gumbel = las.draw_scheduled_sampling(L, B, cfg.tf_rate, cfg, gen, device="cpu")
+    anchored_losses(torch, f"char-LM step B={B} L={L} H={cfg.hidden_size} tf {cfg.tf_rate}", ts,
+                    lambda t, dev: t.loss_of(y.to(dev), tf_draws.to(dev), gumbel.to(dev).to(
+                        t.lm.out.weight.dtype))[0])
+    card, yd = ts[0], y.to(DEVICE)
+    timed_steps(torch, "char-LM step (unroll of 200 + backward + clip + Adam)", card,
+                [card.optim], lambda: card.step(yd), B, ())
+
+    path = os.path.join(tmp, "lm.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(c, f)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ss_asr_tpu_torch.cli.train", "CHARLMTrainer", "lm", path,
+         os.path.join(tmp, "lm_runs"), os.path.join(tmp, "lm_result"), "--seed", str(SEED),
+         "--verbose", "0", "--device", DEVICE],
+        cwd=HERE, env={**os.environ, "PYTHONPATH": HERE}, capture_output=True, text=True,
+        timeout=900)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"cli.train CHARLMTrainer exited {proc.returncode}: {proc.stderr[-3000:]}")
+    with open(os.path.join(tmp, "lm_runs", "lm", "char_lm", "metrics.jsonl")) as f:
+        losses = [r["value"] for r in map(json.loads, f) if r["key"] == "char_lm_train_loss"]
+    first, last = float(np.mean(losses[:per])), float(np.mean(losses[-per:]))
+    print(f"cli.train CHARLMTrainer: {len(losses)} steps of B={B} in {secs:.1f} s (process "
+          f"included); loss per character {losses[0]:.4f} -> {losses[-1]:.4f} (first epoch's mean "
+          f"{first:.4f}, last epoch's {last:.4f})", flush=True)
+    lm_path = os.path.join(tmp, "lm_result", "lm", "char_lm.npz")
+    if not (len(losses) == LM_EPOCHS * per and np.isfinite(losses).all() and last < first
+            and os.path.isfile(lm_path)):
+        fail(f"cli.train CHARLMTrainer: {len(losses)} losses, {first} -> {last}, "
+             f"char_lm.npz written {os.path.isfile(lm_path)}")
+    common = ["--name", "lm", "--config", path, "--logdir", os.path.join(tmp, "lm_runs"),
+              "--ckpdir", os.path.join(tmp, "lm_result"), "--verbose", "0", "--device", DEVICE]
+    _, out = run_main(generate.main, [*common, "--start", "aba ", "--length", "80"])
+    gen = out.strip().splitlines()[-1]
+    print(f"cli.generate (temp 0.6): {gen!r}", flush=True)
+    if not (gen.startswith("aba ") and len(gen) == 84):
+        fail(f"cli.generate printed {out!r}")
+    _, out = run_main(lm_predict.main, [*common, "--text", "aba fig dig hide"])
+    lines = out.strip().splitlines()
+    print(f"cli.lm_predict: {lines[0]!r} {'; '.join(lines[1:])}", flush=True)
+    if not (len(lines) == 12 and lines[-1].startswith("tf_rate=1: ")):
+        fail(f"cli.lm_predict printed {out!r}")
+    return lm_path
+
+
+def direct_hyps(torch, config, index, asr_path, lm_path, beam, lm_weight):
+    """The test index's transcripts from direct ``greedy_decode_early_exit``
+    / ``beam_decode`` calls on the tester's batches and step caps."""
+    from ss_asr_tpu_torch import convert
+    from ss_asr_tpu_torch.data.asr_dataset import ASRDataset, round_up
+    from ss_asr_tpu_torch.decode.beam import beam_decode
+    from ss_asr_tpu_torch.decode.greedy import greedy_decode_early_exit
+    from ss_asr_tpu_torch.models import charlm, las
+    from ss_asr_tpu_torch.utils.checkpoint import load_pytree
+
+    import numpy as np
+
+    c = config["asr"]
+    model = las.LAS(las.ASRConfig.from_dict(c["mdl"]))
+    model.load_state_dict(convert.asr_state_from_params(load_pytree(asr_path)))
+    model = model.to(DEVICE).eval()
+    lm = None
+    if lm_weight:
+        lm = charlm.CharLM(charlm.CharLMConfig.from_dict(config["char_lm"]["mdl"]))
+        lm.load_state_dict(convert.charlm_state_from_params(load_pytree(lm_path)))
+        lm = lm.to(DEVICE).eval()
+    ds = ASRDataset(index, batch_size=TEST_B, t_bucket=c["t_bucket"], l_bucket=c["l_bucket"])
+    hyps = []
+    for b in ds.iter_batches(drop_last=False, shuffle=False):
+        ms = min(200, max(8, round_up(int(c["max_decode_step_ratio"] * b.x.shape[1]), 8)))
+        x, lens = torch.from_numpy(b.x).to(DEVICE), torch.from_numpy(b.x_lens).to(DEVICE)
+        if beam > 1:
+            toks, _ = beam_decode(model, x, lens, beam, ms, lm, lm_weight)
+        else:
+            with torch.inference_mode():
+                toks = greedy_decode_early_exit(model, x, lens, ms, lm, lm_weight)[0].cpu().numpy()
+        valid = b.valid if b.valid is not None else np.ones(len(toks), bool)
+        hyps += [ds.mapper.translate(toks[i]) for i in range(len(toks)) if valid[i]]
+    return hyps
+
+
+TEST_RUNS = (("greedy", {"decode_beam_size": 1, "decode_lm_weight": 0.0},
+              ("lstm_fwd", "greedy_decode")),
+             ("default", {}, ("lstm_fwd", "beam_decode_lm")))
+
+
+def tester_runs(torch, config, held, tmp, name, lm_path, when):
+    """``cli.train ASRTester`` on the held-out index, greedy without the LM
+    and under conf/default.yaml's decode settings (beam 3 + LM 0.5, step
+    cap 0.25 of the frames), each with the launch counters zeroed just
+    before and read just after; every transcript equal to the direct decode
+    calls'.  Returns ({run: metrics}, {run: (hypothesis, reference) pairs},
+    {path: launches})."""
+    import yaml
+
+    from ss_asr_tpu_torch.cli import train
+
+    ck = os.path.join(tmp, "test_result", name)
+    metrics, texts, launches = {}, {}, {}
+    for run, overrides, need in TEST_RUNS:
+        c = copy.deepcopy(config)
+        c["asr"].update(test_index=held, test_batch_size=TEST_B, **overrides)
+        path = os.path.join(tmp, f"test_{name}_{run}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(c, f)
+        zero_launches()
+        t0 = time.perf_counter()
+        run_main(train.main, ["ASRTester", name, path, os.path.join(tmp, "test_runs"),
+                              os.path.join(tmp, "test_result"), "--seed", str(SEED), "--verbose",
+                              "0", "--device", DEVICE])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        tag = f"tester {run} ({when})"
+        launches[tag] = read_launches()
+        a = c["asr"]
+        stem = f"decode_beam_{a['decode_beam_size']}_len_{a['max_decode_step_ratio']}_lm" \
+               f"{a['decode_lm_weight']}"
+        with open(os.path.join(ck, stem + ".txt"), encoding="utf-8") as f:
+            pairs = [line.rstrip("\n").split("\t") for line in f]
+        with open(os.path.join(ck, stem + "_metrics.json")) as f:
+            m = json.load(f)
+        want = direct_hyps(torch, c, held, os.path.join(ck, "asr.npz"), lm_path,
+                           a["decode_beam_size"], a["decode_lm_weight"])
+        print(f"{tag}: {m['n']} utterances in {secs:.3f} s ({m['n'] / secs:.2f} utt/s, the "
+              f"CLI's set-up included), acc {m['acc']:.4f} WER {m['wer']:.4f} CER "
+              f"{m['cer']:.4f}; transcripts equal the direct calls: "
+              f"{[h for h, _ in pairs] == want}; launches "
+              f"{ {k: v for k, v in launches[tag].items() if v} }", flush=True)
+        for h, r in pairs[:3]:
+            print(f"{tag}: {h!r} for {r!r}", flush=True)
+        if [h for h, _ in pairs] != want or m["n"] != len(want) or m["n"] < 1:
+            fail(f"{tag}: transcripts differ from the direct calls")
+        for k in need:
+            if launches[tag][k] < 1:
+                fail(f"{tag}: launched {k} {launches[tag][k]} times")
+        require_cluster_route(tag, launches[tag])
+        metrics[run], texts[run] = m, pairs
+    return metrics, texts, launches
+
+
+def check_tester_and_tools(torch, config, split, relay, lm_path, tmp):
+    """The tester on the held-out side of the tone corpus with the relay of
+    the Seed chain and ASRTrainer, and the trained LM; a bounded
+    ``cli.train ASRTrainer`` run on the train side (``keep_snapshots: 2``);
+    the tester again, whose greedy CER must be below the first one's; the
+    new checkpoint and the LM behind the server (greedy + LM, the default
+    decode); then ``cli.pseudolabel`` on PSEUDO_UTTS held-out wavs with the new checkpoint
+    and the LM (its kept rows must load through ``ASRDataset``), and
+    ``cli.avg_ckpt`` of the run's two snapshots against a float64 mean.
+    Returns {path: launches}."""
+    import numpy as np
+    import yaml
+
+    from ss_asr_tpu_torch.api import Transcriber
+    from ss_asr_tpu_torch.cli import avg_ckpt, pseudolabel
+    from ss_asr_tpu_torch.data.asr_dataset import ASRDataset
+    from ss_asr_tpu_torch.data.audio import load_wav
+    from ss_asr_tpu_torch.data.index import load_index
+    from ss_asr_tpu_torch.utils import checkpoint as ckpt
+
+    train_idx, held = split
+    ck = os.path.join(tmp, "test_result", "test")
+    os.makedirs(ck)
+    shutil.copyfile(relay, os.path.join(ck, "asr.npz"))
+    shutil.copyfile(lm_path, os.path.join(ck, "char_lm.npz"))
+    before, _, launches = tester_runs(torch, config, held, tmp, "test", lm_path, "before")
+
+    extra = os.path.join(tmp, "extra_result", "extra")
+    os.makedirs(extra)
+    shutil.copyfile(relay, os.path.join(extra, "asr.npz"))
+    c = train_config(config, split, EXTRA_EPOCHS)
+    c["asr"].update(keep_snapshots=2, save_step=100, logging_step=20)
+    path = os.path.join(tmp, "extra.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(c, f)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ss_asr_tpu_torch.cli.train", "ASRTrainer", "extra", path,
+         os.path.join(tmp, "extra_runs"), os.path.join(tmp, "extra_result"), "--seed", str(SEED),
+         "--verbose", "0", "--device", DEVICE],
+        cwd=HERE, env={**os.environ, "PYTHONPATH": HERE}, capture_output=True, text=True,
+        timeout=900)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"cli.train ASRTrainer (extra) exited {proc.returncode}: {proc.stderr[-3000:]}")
+    with open(os.path.join(extra, "tracker.json")) as f:
+        steps = json.load(f)["asr"]["step"]
+    with open(os.path.join(tmp, "extra_runs", "extra", "asr", "metrics.jsonl")) as f:
+        losses = [r["value"] for r in map(json.loads, f) if r["key"] == "asr_train_loss"]
+    print(f"cli.train ASRTrainer (extra, from the relay): {steps} steps of B={TRAIN_B} on "
+          f"{len(load_index(train_idx))} train rows in {secs:.1f} s (process included); loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+    shutil.copyfile(os.path.join(extra, "asr.npz"), os.path.join(ck, "asr.npz"))
+    after, texts, more = tester_runs(torch, config, held, tmp, "test", lm_path, "after")
+    launches.update(more)
+    differ = [(g, d, r) for (g, r), (d, _) in zip(texts["greedy"], texts["default"]) if g != d]
+    print(f"tester (after): greedy and default differ on {len(differ)} of "
+          f"{len(texts['greedy'])} utterances (greedy, default, reference): {differ[:6]}",
+          flush=True)
+    for run in before:
+        print(f"tester {run}: CER {before[run]['cer']:.4f} -> {after[run]['cer']:.4f}, WER "
+              f"{before[run]['wer']:.4f} -> {after[run]['wer']:.4f} after the extra run",
+              flush=True)
+    if not after["greedy"]["cer"] < before["greedy"]["cer"]:
+        fail(f"the extra ASRTrainer run did not lower the greedy CER: {before} -> {after}")
+
+    # the trained ASR and the trained LM behind the server: greedy + LM 0.5 and the default
+    wavs = [r["wav_fname"] for r in load_index(held)][:PSEUDO_UTTS]
+    sigs = [load_wav(w, target_sr=PRE_SR)[1] for w in wavs]
+    for tag, kw, need in (("serve+lm trained", {"beam_size": 1, "lm_weight": 0.5},
+                           ("fbank", "lstm_fwd", "greedy_decode_lm")),
+                          ("serve default trained", {}, ("fbank", "lstm_fwd", "beam_decode_lm"))):
+        t = Transcriber.from_checkpoint(os.path.join(ck, "asr.npz"), config, lm_path=lm_path,
+                                        device=DEVICE, sr=PRE_SR, **kw)
+        launches.update(serve_phase(torch, tag, t, sigs, need, sr=PRE_SR, min_chars=3))
+
+    out_dir = os.path.join(tmp, "pseudo")
+    zero_launches()
+    t0 = time.perf_counter()
+    rc, out = run_main(pseudolabel.main, [
+        os.path.join(extra, "asr.npz"), out_dir, *wavs, "--config",
+        os.path.join(HERE, "conf", "default.yaml"), "--lm", lm_path, "--sr", str(PRE_SR),
+        "--batch", str(TEST_B), "--min-avg-logprob", str(PSEUDO_FLOOR), "--device", DEVICE])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches["pseudolabel"] = read_launches()
+    summary = json.loads(out.strip().splitlines()[-1])
+    ds = ASRDataset(summary["index"], batch_size=TEST_B)
+    loaded = sum(int(b.valid.sum()) if b.valid is not None else len(b.x)
+                 for b in ds.iter_batches(drop_last=False))
+    print(f"cli.pseudolabel (beam 3 + LM 0.5, floor {PSEUDO_FLOOR}) in {secs:.3f} s: {summary}; "
+          f"ASRDataset loads {loaded} rows; launches "
+          f"{ {k: v for k, v in launches['pseudolabel'].items() if v} }", flush=True)
+    if rc != 0 or summary["n_kept"] < 1 or loaded != summary["n_kept"]:
+        fail(f"cli.pseudolabel: exit {rc}, {summary}, ASRDataset loaded {loaded} rows")
+    for k in ("fbank", "lstm_fwd", "beam_decode_lm", "spell_fwd"):
+        if launches["pseudolabel"][k] < 1:
+            fail(f"cli.pseudolabel: launched {k} {launches['pseudolabel'][k]} times")
+    require_cluster_route("pseudolabel", launches["pseudolabel"])
+
+    snaps = [p for _, p in ckpt.list_snapshots(extra, "asr")]
+    avg = os.path.join(tmp, "avg.npz")
+    _, out = run_main(avg_ckpt.main, ["--out", avg, "--ckpdir", extra, "--module", "asr",
+                                      "--last", "2"])
+    got = ckpt._flatten(ckpt.load_pytree(avg))
+    trees = [ckpt._flatten(ckpt.load_pytree(p)) for p in snaps]
+    worst = 0.0
+    for k, v in got.items():
+        mean64 = (trees[0][k].astype(np.float64) + trees[1][k].astype(np.float64)) / 2
+        ulp = np.spacing(np.abs(mean64).astype(np.float32)).astype(np.float64)
+        worst = max(worst, float(np.max(np.abs(v.astype(np.float64) - mean64) / ulp)))
+    print(f"cli.avg_ckpt of {[os.path.basename(p) for p in snaps]}: {len(got)} leaves, each within "
+          f"{worst:.3f} float32 ulp of the float64 mean", flush=True)
+    if len(snaps) != 2 or set(got) != set(trees[0]) or worst > 0.5:
+        fail(f"cli.avg_ckpt: {len(snaps)} snapshots, worst {worst} ulp")
+    return launches
 
 
 def main() -> None:
@@ -2141,7 +2617,17 @@ def main() -> None:
     results.update(check_fbank(torch, rng, sigs, stream_sig))
     new_asr_tree = convert.init_asr_numpy(SEED + 2, cfg)
     with tempfile.TemporaryDirectory() as tmp:
-        paths = {name: os.path.join(tmp, f"{name}.npz") for name in ("asr", "lm", "new_asr")}
+        # phase 4: data preparation; phase 5: the char-LM on the corpus's texts, which the
+        # tester, its server and pseudolabel load (phase 10)
+        idx, n = check_preprocess(torch, tmp)
+        launches = {"preprocess": {**{k: 0 for k in read_launches()}, "fbank": n}}
+        # its own stream, so that a phase added here moves no later phase's inputs (the ADV
+        # D-step's draws that miss the anchored rule are held in relu_flip_sweep)
+        lm_path = check_charlm(torch, np.random.default_rng(SEED + 9), config, idx, tmp)
+        # phases 6-7 serve the random ASR with the seeded LM: next to the random ASR the
+        # trained LM ends the decodes within a few steps
+        paths = {"asr": os.path.join(tmp, "asr.npz"), "new_asr": os.path.join(tmp, "new_asr.npz"),
+                 "lm": os.path.join(tmp, "seed_lm.npz")}
         save_pytree(paths["asr"], asr_tree)
         save_pytree(paths["lm"], lm_tree)
 
@@ -2152,13 +2638,13 @@ def main() -> None:
                                                lm_path=lm_path, device=DEVICE,
                                                max_steps=MAX_STEPS, sr=SR, **kw)
 
-        # phase 4: greedy serving, without and with the LM
-        launches = serve_phase(torch, "serve", transcriber(beam_size=1), sigs,
-                               ("fbank", "lstm_fwd", "greedy_decode"))
+        # phase 6: greedy serving, without and with the LM
+        launches.update(serve_phase(torch, "serve", transcriber(beam_size=1), sigs,
+                                    ("fbank", "lstm_fwd", "greedy_decode")))
         launches.update(serve_phase(torch, "serve+lm",
                                     transcriber(paths["lm"], beam_size=1, lm_weight=0.5), sigs,
                                     ("fbank", "lstm_fwd", "greedy_decode_lm")))
-        # phase 5: serving under the default config's decode settings
+        # phase 7: serving under the default config's decode settings
         beam = transcriber(config=config)
         default = transcriber(paths["lm"], config=config)
         if (beam.beam_size, default.beam_size, default.lm_weight) != (3, 3, 0.5):
@@ -2171,15 +2657,15 @@ def main() -> None:
         launches.update(serve_phase(
             torch, "serve default", default, sigs, ("fbank", "lstm_fwd", "beam_decode_lm"),
             reload_paths={"asr": paths["asr"], "lm": paths["lm"]}, routes=routes))
-        # phase 6: the train step, then the training CLI
+        # phase 8: the train step, then the training CLI
         launches["train"] = check_train_step(torch, rng, config, asr_tree, tmp)
         check_cli_train(rng, config, tmp)
-        # phase 8: data preparation, the auxiliary trainers, the Seed chain
-        idx, n = check_preprocess(torch, tmp)
-        launches["preprocess"] = {**{k: 0 for k in read_launches()}, "fbank": n}
+        # phase 9: the auxiliary trainers, the Seed chain
         launches.update(check_aux_trainers(torch, rng, config, asr_tree, tmp))
-        check_cli_seed(config, idx, tmp)
-    # each kernel's launches on the serving and training paths, every path counted on its own
+        split, relay = check_cli_seed(config, idx, tmp)
+        # phase 10: the tester, pseudo-labels and checkpoint averaging
+        launches.update(check_tester_and_tools(torch, config, split, relay, lm_path, tmp))
+    # each kernel's launches on the serving, training and test paths, each path counted on its own
     counts = {name: sum(ls[name] for ls in launches.values()) for name in results}
     cluster_launches = {name: sum(ls[counter] for ls in launches.values())
                         for name, counter in CLUSTER_COUNTERS.items()}

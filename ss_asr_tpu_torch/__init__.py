@@ -15,12 +15,14 @@ streaming decodes, the ``Transcriber`` API, the dynamic batcher and the
 HTTP server with hot reload; the supervised train step with ``ASRTrainer``;
 data preparation (``cli.mkdata``, ``cli.preprocess``); and the
 semi-supervised trainers (text autoencoder, speech autoencoder, adversarial
-listener) with the ``Seed`` chain that runs them (``cli.train``).  Its hot
+listener) with the ``Seed`` chain that runs them (``cli.train``); the
+char-LM trainer (``cli.generate``, ``cli.lm_predict``), the test-set
+decoder ``ASRTester``, ``cli.pseudolabel`` and ``cli.avg_ckpt``.  Its hot
 loops run as CUDA C++ kernels written for ``sm_90a`` (``csrc/``): the LSTM
 time loop forward and backward, the whole greedy decode and the whole beam
 frontier (each with and without the LM), the attend-and-spell forward and
-backward, and the fused log-mel frontend.  The char-LM trainer, ``ASRTester``
-and the pseudo-labelling, averaging and import CLIs are not ported yet.
+backward, and the fused log-mel frontend.  The checkpoint import CLI is not
+ported yet.
 
 Routing is by device alone: a CUDA tensor goes to the kernel, a CPU tensor
 to the kernel's plain PyTorch version beside it.  There is no switch.

@@ -7,9 +7,11 @@ Port of ``ss_asr_tpu/cli/train.py``: the same positional arguments and
 options, plus ``--device`` (default ``cuda``; a missing GPU is an error).
 Checkpoints land in ``<ckpdir>/<name>/`` in the JAX package's layout, so
 either package resumes from the other's.  ``type`` is ``ASRTrainer``,
-``TAETrainer``, ``SAETrainer``, ``AdvTrainer`` / ``ADVTrainer`` or ``Seed``
-(the TAE / ADV / SAE chain over the ASR relay files); the char-LM trainer
-and ``ASRTester`` raise ``NotImplementedError``.
+``ASRTester`` (decode ``asr.test_index`` with ``<ckpdir>/<name>/asr.npz``
+and, when it exists, ``char_lm.npz``), ``LMTrainer`` / ``CHARLMTrainer``
+(the char-LM), ``TAETrainer``, ``SAETrainer``, ``AdvTrainer`` /
+``ADVTrainer`` or ``Seed`` (the TAE / ADV / SAE chain over the ASR relay
+files).
 """
 
 from __future__ import annotations
@@ -21,11 +23,6 @@ import numpy as np
 
 TYPES = ["ASRTrainer", "ASRTester", "LMTrainer", "CHARLMTrainer",
          "TAETrainer", "SAETrainer", "AdvTrainer", "ADVTrainer", "Seed"]
-UNPORTED = {
-    "LMTrainer": "ROADMAP.md port item 3 (the char-LM trainer)",
-    "CHARLMTrainer": "ROADMAP.md port item 3 (the char-LM trainer)",
-    "ASRTester": "ROADMAP.md port item 4 (ASRTester)",
-}
 
 
 def _parse_bool(s: str) -> bool:
@@ -50,8 +47,6 @@ def main(argv=None):
 
     if paras.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit(f"--device {paras.device}: CUDA is not available")
-    if paras.type in UNPORTED:
-        raise NotImplementedError(f"{paras.type} is not ported yet, see {UNPORTED[paras.type]}")
 
     import yaml
 
@@ -67,11 +62,14 @@ def main(argv=None):
         return
     from ss_asr_tpu_torch.train.adv_trainer import ADVTrainer
     from ss_asr_tpu_torch.train.asr_trainer import ASRTrainer
+    from ss_asr_tpu_torch.train.lm_trainer import CHARLMTrainer
     from ss_asr_tpu_torch.train.sae_trainer import SAETrainer
     from ss_asr_tpu_torch.train.tae_trainer import TAETrainer
+    from ss_asr_tpu_torch.train.tester import ASRTester
 
-    trainers = {"ASRTrainer": ASRTrainer, "TAETrainer": TAETrainer, "SAETrainer": SAETrainer,
-                "AdvTrainer": ADVTrainer, "ADVTrainer": ADVTrainer}
+    trainers = {"ASRTrainer": ASRTrainer, "ASRTester": ASRTester, "LMTrainer": CHARLMTrainer,
+                "CHARLMTrainer": CHARLMTrainer, "TAETrainer": TAETrainer,
+                "SAETrainer": SAETrainer, "AdvTrainer": ADVTrainer, "ADVTrainer": ADVTrainer}
     solver = trainers[paras.type](config, paras, device=paras.device)
     solver.load_data()
     solver.set_model()

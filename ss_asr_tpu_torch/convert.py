@@ -14,7 +14,10 @@
   those of ``export_tae`` / ``export_sae`` / ``export_discriminator`` there.
 * ``opt_state_leaves`` / ``load_opt_state_leaves``: an optimizer over several
   models' parameters (named ``<model>.<state_dict key>``), masked to some
-  subtrees, as the leaves of the JAX package's optax state.
+  subtrees, as the leaves of the JAX package's optax state (the char-LM
+  trainer's: ``{"char_lm": lm}``, unmasked); ``asr_opt_state_leaves`` and
+  its loader for the ASR trainer, whose parameters carry their
+  ``state_dict`` names.
 * ``init_asr_numpy`` / ``init_charlm_numpy`` / ``init_tae_numpy`` /
   ``init_sae_numpy`` / ``init_disc_numpy``: seeded numpy draws with the
   shapes and distributions of the JAX initializers (``ops/rnn.py``
@@ -204,12 +207,35 @@ def disc_params_from_state(sd: Dict[str, torch.Tensor]) -> Tree:
     return {ours: _linear_from(sd, f"core.{theirs}") for ours, theirs in _MLP}
 
 
+def charlm_state_from_params(tree: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``models.charlm`` tree -> ``CharLM.state_dict()``."""
+    out: Dict[str, torch.Tensor] = {"emb.weight": _f(tree["emb"]["table"])}
+    _gru_to(tree["gru1"], "layer_1", out)
+    _gru_to(tree["gru2"], "layer_2", out)
+    _linear_to(tree["out"], "out", out)
+    return out
+
+
+def _gru_from(sd, prefix: str) -> Tree:
+    return {"w_ih": _n(sd[prefix + ".weight_ih"]).T, "w_hh": _n(sd[prefix + ".weight_hh"]).T,
+            "b_ih": _n(sd[prefix + ".bias_ih"]), "b_hh": _n(sd[prefix + ".bias_hh"])}
+
+
+def charlm_params_from_state(sd: Dict[str, torch.Tensor]) -> Tree:
+    """``CharLM.state_dict()`` (or gradients, or optimizer slots under its
+    keys) -> the JAX ``models.charlm`` tree: the inverse of
+    ``charlm_state_from_params``."""
+    return {"emb": {"table": _n(sd["emb.weight"])}, "gru1": _gru_from(sd, "layer_1"),
+            "gru2": _gru_from(sd, "layer_2"), "out": _linear_from(sd, "out")}
+
+
 #: model key of a joint tree -> state_dict-like dict -> its JAX parameter tree
 PARAMS_FROM_STATE = {"asr": asr_params_from_state, "tae": tae_params_from_state,
                      "sae": lambda sd: sae_params_from_state(sd)[0],
-                     "disc": disc_params_from_state}
+                     "disc": disc_params_from_state, "char_lm": charlm_params_from_state}
 STATE_FROM_PARAMS = {"asr": asr_state_from_params, "tae": tae_state_from_params,
-                     "sae": sae_state_from_params, "disc": disc_state_from_params}
+                     "sae": sae_state_from_params, "disc": disc_state_from_params,
+                     "char_lm": charlm_state_from_params}
 
 
 def tree_leaves(tree: Tree) -> List[np.ndarray]:
@@ -305,15 +331,6 @@ def asr_opt_state_leaves(opt, model) -> List[np.ndarray]:
 
 def load_asr_opt_state_leaves(opt, model, leaves: List[np.ndarray]) -> bool:
     return load_opt_state_leaves(opt, {"asr": model}, None, leaves, prefixed=False)
-
-
-def charlm_state_from_params(tree: Tree) -> Dict[str, torch.Tensor]:
-    """JAX ``models.charlm`` tree -> ``CharLM.state_dict()``."""
-    out: Dict[str, torch.Tensor] = {"emb.weight": _f(tree["emb"]["table"])}
-    _gru_to(tree["gru1"], "layer_1", out)
-    _gru_to(tree["gru2"], "layer_2", out)
-    _linear_to(tree["out"], "out", out)
-    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,10 @@
 """Character-level language model (2x GRU) for shallow fusion.
 
-Port of ``ss_asr_tpu/models/charlm.py`` (decode-time stepping and the
-teacher-forced unroll that alignment and rescoring read).
+Port of ``ss_asr_tpu/models/charlm.py``: decode-time stepping, the
+teacher-forced unroll with scheduled sampling (training, alignment and
+rescoring read it) and free-running generation.  The random draws of both
+are inputs or come from an explicit ``torch.Generator`` (``jax.random``'s
+streams cannot be reproduced).
 ``CharLM.state_dict()`` has the reference CharLM's keys (and those of
 ``export_charlm``): ``emb.weight``, ``layer_{1,2}.*`` (GRU cells), ``out.*``.
 """
@@ -14,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
+from ss_asr_tpu_torch.models import las
 from ss_asr_tpu_torch.ops import rnn
 from ss_asr_tpu_torch.vocab import SOS_ID, VOCAB_SIZE
 
@@ -41,8 +45,9 @@ class CharLM(nn.Module):
         self.out = nn.Linear(h, cfg.vocab_size)
 
 
-def init_state(batch: int, cfg: CharLMConfig, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    z = torch.zeros(batch, cfg.hidden_size, device=device)
+def init_state(batch: int, cfg: CharLMConfig, device,
+               dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    z = torch.zeros(batch, cfg.hidden_size, device=device, dtype=dtype)
     return (z, z)
 
 
@@ -72,7 +77,7 @@ def teacher_forced_unroll(
     dev = labels.device
     ids = first_input if first_input is not None else torch.full((B,), SOS_ID, dtype=torch.long,
                                                                  device=dev)
-    state = init_state(B, p.cfg, dev)
+    state = init_state(B, p.cfg, dev, p.out.weight.dtype)
     out = []
     for t in range(L):
         logits, state = step(p, ids.long(), state)
@@ -84,3 +89,37 @@ def teacher_forced_unroll(
             ids = torch.where(tf_draws[t] > 0.5, labels[:, t].long(),
                               torch.argmax(logits + noise, dim=-1))
     return torch.stack(out, dim=1)
+
+
+@torch.no_grad()
+def generate(
+    p: CharLM, cfg: CharLMConfig, generator: Optional[torch.Generator], length: int,
+    temp: float = 0.8, start_ids: Optional[torch.Tensor] = None,
+    gumbel: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Free-running generation with temperature sampling -> [length] ids
+    (prompt not included), on the LM's device.
+
+    ``start_ids`` [S] is the prompt (``[SOS]`` by default): its first S - 1
+    ids are consumed, then each step feeds the last id and samples the next
+    as ``argmax(logits / temp + gumbel[t])``, the Gumbel-max form of
+    ``jax.random.categorical``.  ``gumbel`` [length, V] is drawn from
+    ``generator`` unless given.  The loop keeps the ids on the device: no
+    host sync per character."""
+    dev = p.out.weight.device
+    if start_ids is None:
+        start_ids = torch.tensor([SOS_ID], dtype=torch.long)
+    start_ids = start_ids.to(dev).long()
+    if gumbel is None:
+        gumbel = las.gumbel_noise((length, cfg.vocab_size), generator)
+    gumbel = gumbel.to(dev)
+    state = init_state(1, cfg, dev, p.out.weight.dtype)
+    for i in range(start_ids.shape[0] - 1):
+        _, state = step(p, start_ids[i : i + 1], state)
+    ids = start_ids[-1:]
+    out = []
+    for t in range(length):
+        logits, state = step(p, ids, state)
+        ids = torch.argmax(logits / temp + gumbel[t], dim=-1)
+        out.append(ids)
+    return torch.cat(out).to(torch.int32) if out else torch.zeros(0, dtype=torch.int32, device=dev)

@@ -157,9 +157,15 @@ def draw_scheduled_sampling(
     argmax, drawn on the host and moved to ``device`` (required).
     ``torch.Generator`` streams differ from ``jax.random``'s."""
     tf_draws = (torch.rand(decode_step, generator=generator) <= tf_rate).to(torch.float32)
-    u = torch.rand(decode_step, batch, cfg.vocab_size, generator=generator)
-    u = u.clamp(min=torch.finfo(torch.float32).tiny)  # JAX draws from [tiny, 1)
-    return tf_draws.to(device), (-torch.log(-torch.log(u))).to(device)
+    return tf_draws.to(device), gumbel_noise((decode_step, batch, cfg.vocab_size),
+                                             generator).to(device)
+
+
+def gumbel_noise(shape, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Gumbel(0, 1) noise on the host, from uniforms in [tiny, 1) as
+    ``jax.random.gumbel`` draws them."""
+    u = torch.rand(shape, generator=generator).clamp(min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
 
 
 def attend_and_spell(

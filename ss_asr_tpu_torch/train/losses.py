@@ -3,8 +3,8 @@
 Port of ``ss_asr_tpu/train/losses.py``: per-position cross-entropy with
 pad id 0 ignored, summed per utterance and divided by the full target's
 non-pad count (ASR, TAE); smooth-L1 over the batch's longest utterance
-(SAE); binary cross-entropy on sigmoid outputs (ADV).  The char-LM's
-``chunk_ce`` waits for its trainer.
+(SAE); binary cross-entropy on sigmoid outputs (ADV); the char-LM's
+cross-entropy summed over the chunk (``chunk_ce``).
 """
 
 from __future__ import annotations
@@ -31,6 +31,14 @@ def masked_ce_per_utt(
 ) -> torch.Tensor:
     """The ASR train loss: the batch mean of ``masked_nll_per_utt``."""
     return masked_nll_per_utt(logits, labels, y).mean()
+
+
+def chunk_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The char-LM loss: cross-entropy summed over the chunk, meaned over the
+    batch, no ignore index.  logits [B, L, V]; labels [B, L]."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return nll.sum(-1).mean()
 
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0) -> torch.Tensor:

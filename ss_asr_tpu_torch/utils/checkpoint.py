@@ -1,8 +1,9 @@
 """Parameter trees as flat ``.npz`` archives.
 
 Copied from ``ss_asr_tpu/utils/checkpoint.py`` (``save_pytree`` /
-``load_pytree``, ``save_opt_state`` / ``load_opt_state`` and the snapshot
-helpers, the npz half; the orbax backend is not ported): a nested
+``load_pytree``, ``save_opt_state`` / ``load_opt_state``, the snapshot
+helpers and ``average_pytrees``, the npz half; the orbax backend is not
+ported): a nested
 dict of arrays is stored with ``/``-joined tree paths as keys, so one file
 is readable by both packages.  Trees hold the JAX package's layout;
 ``ss_asr_tpu_torch.convert`` turns them into this package's state_dicts.
@@ -13,7 +14,7 @@ from __future__ import annotations
 import glob
 import os
 import re
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
@@ -94,3 +95,35 @@ def prune_snapshots(ckpdir: str, module_id: str, keep: int) -> List[str]:
     for p in removed:
         os.remove(p)
     return removed
+
+
+def average_pytrees(paths) -> Dict:
+    """Elementwise mean of npz checkpoints, accumulated in float64 and cast
+    back to each leaf's dtype.  Every checkpoint must have the same key set
+    and leaf shapes (one training run's snapshots); a mismatch raises
+    ValueError naming the leaf."""
+    paths = list(paths)
+    if not paths:
+        raise ValueError("average_pytrees: no checkpoints given")
+    acc: Dict[str, np.ndarray] = {}
+    dtypes: Dict[str, Any] = {}
+    ref_keys = None
+    for p in paths:
+        flat = _flatten(load_pytree(p))
+        if ref_keys is None:
+            ref_keys = set(flat)
+        elif set(flat) != ref_keys:
+            diff = sorted(set(flat) ^ ref_keys)
+            raise ValueError(f"average_pytrees: {p} key set differs from "
+                             f"{paths[0]} (e.g. {diff[:3]})")
+        for k, v in flat.items():
+            v = np.asarray(v)
+            if k not in acc:
+                acc[k] = np.zeros(v.shape, np.float64)
+                dtypes[k] = v.dtype
+            elif acc[k].shape != v.shape:
+                raise ValueError(f"average_pytrees: leaf {k!r} shape "
+                                 f"{v.shape} in {p} != {acc[k].shape}")
+            acc[k] += v.astype(np.float64)
+    n = len(paths)
+    return _unflatten({k: (a / n).astype(dtypes[k]) for k, a in acc.items()})

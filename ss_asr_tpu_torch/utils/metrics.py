@@ -1,4 +1,5 @@
-"""Copied from ``ss_asr_tpu/utils/metrics.py`` (the metrics the ASR trainer logs).
+"""Copied from ``ss_asr_tpu/utils/metrics.py`` (the metrics the ASR trainer
+logs and the tester's per-row ones).
 
 Quality metrics: character accuracy, word-error-rate, attention maps.
 
@@ -11,6 +12,9 @@ Metric definitions replicate the reference exactly (src/postprocess.py:7-64):
   Values can exceed 1.0 by construction.
 * ``draw_att`` — attention maps stacked to 3 channels, trimmed at the
   hypothesis' first EOS.
+* ``char_acc_row`` / ``with_terminal_eos`` / ``err_rate`` — one decoded
+  row's accuracy against its label (the emitted EOS put back), and one
+  hypothesis / reference pair's word or character error.
 """
 
 from __future__ import annotations
@@ -78,6 +82,40 @@ def calc_cer(predict: np.ndarray, label: np.ndarray, mapper: Mapper) -> float:
         for p, l in zip(preds, labels)
     ]
     return float(sum(ds) / max(len(ds), 1))
+
+
+def char_acc_row(pred: np.ndarray, label: np.ndarray) -> float:
+    """``calc_acc`` for ONE row: positionwise match over the label's
+    positions until its first pad (id 0).  Callers pass the label WITHOUT
+    its leading SOS, so positions align with the decoded ids."""
+    pred = np.asarray(pred)
+    label = np.asarray(label)
+    n = int(np.argmax(label == 0)) if (label == 0).any() else len(label)
+    if n == 0:
+        return 0.0
+    if len(pred) < n:
+        pred = np.concatenate([pred, np.zeros(n - len(pred), dtype=pred.dtype)])
+    return float(np.mean(pred[:n] == label[:n]))
+
+
+def with_terminal_eos(toks_row: np.ndarray, length: int) -> np.ndarray:
+    """Put the emitted EOS back into a decoded row.  The decoders return the
+    EOS and all after it as pad; ``length < len(toks)`` means an EOS was
+    emitted at that position, ``length == len(toks)`` that the decode hit
+    its step cap without one (the row is left as it is, and the label's EOS
+    then counts as a miss)."""
+    t = np.array(toks_row, copy=True)
+    if 0 <= int(length) < len(t):
+        t[int(length)] = 1  # EOS id (vocab.EOS_ID)
+    return t
+
+
+def err_rate(hyp: str, ref: str, unit: str = "word") -> float:
+    """Edit-distance error of one hypothesis / reference pair over the
+    reference's length: ``unit="word"`` the thesis' per-utterance word
+    error (may exceed 1), ``unit="char"`` the per-utterance CER."""
+    split = (lambda s: s.split(" ")) if unit == "word" else list
+    return float(edit_distance(split(hyp), split(ref))) / max(len(split(ref)), 1)
 
 
 def draw_att(att_maps: np.ndarray, hyps: Sequence[Sequence[int]]) -> List[np.ndarray]:

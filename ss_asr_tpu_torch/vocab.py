@@ -1,16 +1,20 @@
 """Character vocabulary and id -> text mapping.
 
-Copied from ``ss_asr_tpu/vocab.py`` (the subset the port needs): the
-fixed 50-symbol inventory, ``SOS_ID=0`` (also the pad id), ``EOS_ID=1``,
+Copied from ``ss_asr_tpu/vocab.py``: the fixed 50-symbol inventory,
+``SOS_ID=0`` (also the pad id), ``EOS_ID=1``, ``UNK_ID=2``,
 ``normalize_string`` (raw text -> the closed inventory, for
-preprocessing), ``Mapper.encode`` (an index's normalised text -> ids) and
-``Mapper.translate``, which cuts after the first EOS and drops SOS/EOS.
+preprocessing), ``Mapper`` (``encode`` an index's normalised text -> ids,
+``decode`` ids -> text verbatim, ``translate``, which cuts after the first
+EOS and drops SOS/EOS, and the one-symbol lookups) and ``encode_texts``
+(a batch of texts -> padded ids and lengths).  The one-symbol lookups and
+``encode_texts`` keep the JAX package's surface for its callers; no module
+of this package calls them.
 """
 
 from __future__ import annotations
 
 import re
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -29,6 +33,7 @@ VOCAB = TOKENS + ALL_CHARS
 
 SOS_ID = 0
 EOS_ID = 1
+UNK_ID = 2
 
 VOCAB_SIZE = len(VOCAB)
 
@@ -65,12 +70,23 @@ class Mapper:
     """Character <-> index mapping over the fixed vocabulary."""
 
     def __init__(self, tokens: str = VOCAB):
+        self.tokens = tokens
         self.mapping = {c: i for i, c in enumerate(tokens)}
         self.r_mapping = dict(enumerate(tokens))
+
+    def char_to_ind(self, char: str) -> int:
+        return self.mapping[char]
+
+    def ind_to_char(self, ind: int) -> str:
+        return self.r_mapping[int(ind)]
 
     def encode(self, text: str) -> np.ndarray:
         """String -> int32 id array (no implicit SOS/EOS handling)."""
         return np.array([self.mapping[c] for c in text], dtype=np.int32)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        """Id sequence -> string, verbatim (no EOS trimming)."""
+        return "".join(self.r_mapping[int(i)] for i in ids)
 
     def translate(self, seq: Sequence[int]) -> str:
         """Id sequence -> human string: cut after first EOS, drop SOS/EOS."""
@@ -79,3 +95,19 @@ class Mapper:
 
     def get_dim(self) -> int:
         return len(self.mapping)
+
+
+def encode_texts(
+    texts: Sequence[str], mapper: Mapper, pad_to: Optional[int] = None
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Encode a batch of (normalised, SOS/EOS-wrapped) strings -> ``(ids
+    [B, L] int32, lengths [B] int32)``, padded with SOS (id 0) to ``pad_to``
+    or the batch's longest; a length counts the row's ids, capped at the
+    padded width."""
+    encoded = [mapper.encode(t) for t in texts]
+    lens = np.array([e.shape[0] for e in encoded], dtype=np.int32)
+    max_len = int(pad_to) if pad_to is not None else int(lens.max())
+    out = np.full((len(texts), max_len), SOS_ID, dtype=np.int32)
+    for i, e in enumerate(encoded):
+        out[i, : e.shape[0]] = e[:max_len]
+    return out, np.minimum(lens, max_len)

@@ -11,6 +11,7 @@ multiple of the block, batches that are not a multiple of the row tile,
 lengths 0 and 1), where ``chip_smoke.py`` checks the flagship shapes.
 """
 
+import contextlib
 import copy
 import io
 import json
@@ -1085,3 +1086,157 @@ def test_cli_serve_takes_the_default_config_on_the_card(cuda, tmp_path):
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+
+
+# --------------------------------------------------------------------------
+# the char-LM trainer, the tester and pseudo-labels on the card
+
+
+def test_lm_step_on_the_card_matches_float64(cuda, tmp_path):
+    """One char-LM step (B = 6, L = 23, H = 24, tf 0.7, draws from one seeded
+    generator) by the anchored rule; then an update moves every parameter."""
+    from ss_asr_tpu_torch.train.lm_trainer import CHARLMTrainer
+    from ss_asr_tpu_torch.train.solver import make_paras
+    from ss_asr_tpu_torch.utils.checkpoint import save_pytree
+
+    corpus = tmp_path / "lm.txt"
+    corpus.write_text("aba fig dig hide jade echo " * 40)
+    config = {"char_lm": {"opt": {"type": "Adam", "learning_rate": 1e-3},
+                          "mdl": {"hidden_size": 24, "tf_rate": 0.7}, "train_index": str(corpus),
+                          "chunk_size": 23, "train_batch_size": 6}}
+    tree = convert.init_charlm_numpy(3, charlm.CharLMConfig(hidden_size=24))
+    ts = []
+    for tag, dev in (("card", "cuda"), ("cpu", "cpu"), ("f64", "cpu")):
+        save_pytree(str(tmp_path / "result" / tag / "char_lm.npz"), tree)
+        t = CHARLMTrainer(config, make_paras(tag, str(tmp_path / "runs"),
+                                             str(tmp_path / "result"), 1, False), device=dev)
+        t.load_data()
+        t.set_model()
+        ts.append(t)
+    ts[2].lm.double()
+    y = torch.from_numpy(next(ts[1].ds.iter_batches(6, seed=0))[1]).long()
+    draws = las.draw_scheduled_sampling(23, 6, 0.7, ts[0].cfg, torch.Generator().manual_seed(2),
+                                        device="cpu")
+    anchored_losses(torch, "char-LM step", ts, lambda t, dev: t.loss_of(
+        y.to(dev), draws[0].to(dev), draws[1].to(dev).to(t.lm.out.weight.dtype))[0])
+    _unchanged_outside(ts[0], [ts[0].optim], lambda: ts[0].step(y.to(cuda)))
+
+
+def _tester_setup(tmp_path):
+    """A tone corpus's fbanks (cli.mkdata + the frontend on the card), a
+    seeded ASR checkpoint of H = 64 that does not stop early and a char-LM
+    beside it, and a config."""
+    from ss_asr_tpu_torch.cli import mkdata
+    from ss_asr_tpu_torch.data.audio import load_wav
+    from ss_asr_tpu_torch.utils.checkpoint import save_pytree
+    from ss_asr_tpu_torch.vocab import normalize_string
+
+    mkdata.make_corpus(str(tmp_path / "corpus"), n=7, seed=1)
+    rows = []
+    for i in range(7):
+        _, y = load_wav(str(tmp_path / "corpus" / "wav" / f"u{i:04d}.wav"), target_sr=16000)
+        fb = frontend.compute_fbank(y, 16000, device="cuda")
+        path = str(tmp_path / f"u{i}.npy")
+        np.save(path, fb)
+        text = (tmp_path / "corpus" / "txt" / f"u{i:04d}.txt").read_text()
+        norm, s_len = normalize_string(text)
+        rows.append((norm, path, s_len, fb.shape[0], "na", f"u{i}.wav"))
+    idx = tmp_path / "index.tsv"
+    idx.write_text("".join("\t".join(map(str, r)) + "\n" for r in sorted(rows, key=lambda r: r[3])))
+    mdl = {"encoder_state_size": 64, "decoder_state_size": 64, "mlp_out_size": 32}
+    d = tmp_path / "result" / "test"
+    tree = convert.init_asr_numpy(4, las.ASRConfig(**mdl))
+    tree["char_trans"]["b"][1] = -5.0  # no early EOS: every hypothesis has characters to align
+    save_pytree(str(d / "asr.npz"), tree)
+    save_pytree(str(d / "char_lm.npz"), convert.init_charlm_numpy(5, charlm.CharLMConfig()))
+    return {"asr": {"mdl": mdl, "test_index": str(idx), "test_batch_size": 3,
+                    "max_decode_step_ratio": 0.25, "decode_lm_weight": 0.5},
+            "char_lm": {"mdl": {"hidden_size": 128}}}
+
+
+@pytest.mark.parametrize("beam", [1, 3], ids=["greedy+lm", "beam3+lm"])
+def test_asr_tester_on_the_card_equals_the_direct_decodes(cuda, tmp_path, beam):
+    """``cli.train ASRTester`` on the card: its launches (K2, and K7 or K8
+    with the LM) counted, and its transcripts those of the direct decode
+    calls on the same batches, which equal the CPU tester's."""
+    from ss_asr_tpu_torch.cli import train
+    from ss_asr_tpu_torch.data.asr_dataset import ASRDataset, round_up
+    from ss_asr_tpu_torch.decode.beam import beam_decode
+    from ss_asr_tpu_torch.decode.greedy import greedy_decode_early_exit
+    from ss_asr_tpu_torch.train.solver import make_paras
+    from ss_asr_tpu_torch.train.tester import ASRTester
+
+    config = _tester_setup(tmp_path)
+    config["asr"]["decode_beam_size"] = beam
+    path = tmp_path / "conf.yaml"
+    path.write_text(json.dumps(config))
+    counters = (klstm.LAUNCHES, kdec.LAUNCHES, kbeam.LAUNCHES)
+    before = {k: c[k] for c in counters for k in c}
+    train.main(["ASRTester", "test", str(path), str(tmp_path / "runs"), str(tmp_path / "result"),
+                "--verbose", "0"])
+    launched = {k: c[k] - before[k] for c in counters for k in c}
+    need = "greedy_decode_lm" if beam == 1 else "beam_decode_lm"
+    assert launched["lstm_fwd"] > 0 and launched[need] > 0
+    fname = f"decode_beam_{beam}_len_0.25_lm0.5.txt"
+    got = [line.split("\t")[0] for line in
+           (tmp_path / "result" / "test" / fname).read_text(encoding="utf-8").splitlines()]
+
+    t = ASRTester(config, make_paras("test", str(tmp_path / "runs"), str(tmp_path / "result"), 1,
+                                     False), device="cuda")
+    t.load_data()
+    t.set_model()
+    want = []
+    for b in ASRDataset(config["asr"]["test_index"], batch_size=3).iter_batches(drop_last=False):
+        ms = min(200, max(8, round_up(int(0.25 * b.x.shape[1]), 8)))
+        x, lens = torch.from_numpy(b.x).to(cuda), torch.from_numpy(b.x_lens).to(cuda)
+        if beam > 1:
+            toks, _ = beam_decode(t.model, x, lens, beam, ms, t.lm, 0.5)
+        else:
+            with torch.inference_mode():
+                toks = greedy_decode_early_exit(t.model, x, lens, ms, t.lm, 0.5)[0].cpu().numpy()
+        want += [t.mapper.translate(toks[i]) for i in range(len(toks))
+                 if b.valid is None or b.valid[i]]
+    assert got == want and len(got) == 7
+    cpu = ASRTester(config, make_paras("test", str(tmp_path / "runs"), str(tmp_path / "result"),
+                                       1, False), device="cpu")
+    cpu.load_data()
+    cpu.set_model()
+    assert cpu.exec() == got
+
+
+def test_pseudolabel_on_the_card(cuda, tmp_path):
+    """``cli.pseudolabel`` (beam 3 + LM) on the card: K11, K2, K8 and K9
+    launch, and its summary and kept texts are the CPU run's."""
+    from ss_asr_tpu_torch.cli import pseudolabel
+
+    config = _tester_setup(tmp_path)
+    config["asr"]["decode_beam_size"] = 3
+    path = tmp_path / "conf.yaml"
+    path.write_text(json.dumps(config))
+    wavs = [str(tmp_path / "corpus" / "wav" / f"u{i:04d}.wav") for i in range(7)]
+    argv = [str(tmp_path / "result" / "test" / "asr.npz"), None, *wavs, "--config", str(path),
+            "--lm", str(tmp_path / "result" / "test" / "char_lm.npz"), "--sr", "16000",
+            "--batch", "4", "--min-avg-logprob", "-1000", "--min-chars", "0",
+            "--max-steps", "24"]
+    counters = (klstm.LAUNCHES, kbeam.LAUNCHES, kspell.LAUNCHES, kfe.LAUNCHES)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        argv[1] = str(tmp_path / f"pseudo_{dev}")
+        before = {k: c[k] for c in counters for k in c}
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert pseudolabel.main([*argv, "--device", dev]) == 0
+        launched = {k: c[k] - before[k] for c in counters for k in c}
+        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+        summary.pop("index")
+        texts = [line.split("\t")[0] for line in
+                 (Path(argv[1]) / "index.tsv").read_text(encoding="utf-8").splitlines()]
+        out[dev] = (summary, texts)
+        if dev == "cuda":
+            assert all(launched[k] > 0 for k in ("fbank", "lstm_fwd", "beam_decode_lm",
+                                                  "spell_fwd")), launched
+        else:
+            assert not any(launched.values())
+    assert out["cuda"][1] == out["cpu"][1] and out["cuda"][0]["n_kept"] == 7
+    assert all(len(t) > 2 for t in out["cuda"][1])  # "<" + characters + ">"
+    assert out["cuda"][0]["rejected_low_conf"] == out["cpu"][0]["rejected_low_conf"] == 0

@@ -237,16 +237,35 @@ def test_cli_train_loss_falls_at_tf_09(corpus, tmp_path):
     assert json.loads((d / "tracker.json").read_text())["asr"]["step"] == 24
 
 
-def test_cli_train_refuses_missing_cuda_and_unported_trainers(monkeypatch):
+def test_cli_train_refuses_missing_cuda_and_dispatches_every_trainer(monkeypatch, tmp_path):
     from ss_asr_tpu_torch.cli import train
+    from ss_asr_tpu_torch.train import lm_trainer, tester
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA is not available"):
         train.main(["ASRTrainer"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md port item 3"):
-        train.main(["LMTrainer", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md port item 4"):
-        train.main(["ASRTester", "--device", "cpu"])
+    calls = []
+
+    def stub(name):
+        class Stub:
+            def __init__(self, config, paras, device):
+                calls.append((name, paras.type, device, sorted(config)))
+
+            def __getattr__(self, method):  # load_data, set_model, exec, close
+                return lambda: calls.append(method)
+        return Stub
+
+    monkeypatch.setattr(lm_trainer, "CHARLMTrainer", stub("CHARLMTrainer"))
+    monkeypatch.setattr(tester, "ASRTester", stub("ASRTester"))
+    conf = str(ROOT / "conf" / "default.yaml")
+    steps = ["load_data", "set_model", "exec", "close"]
+    for kind, cls in (("LMTrainer", "CHARLMTrainer"), ("CHARLMTrainer", "CHARLMTrainer"),
+                      ("ASRTester", "ASRTester")):
+        calls.clear()
+        train.main([kind, "exp", conf, str(tmp_path / "runs"), str(tmp_path / "result"),
+                    "--device", "cpu"])
+        assert calls[0][:3] == (cls, kind, "cpu") and "char_lm" in calls[0][3]
+        assert calls[1:] == steps
 
 
 @pytest.mark.parametrize("opt", [{"accum_steps": 2}, {"warmup_steps": 10}, {"decay_steps": 5}])
