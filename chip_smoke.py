@@ -158,7 +158,33 @@ Phases, in order; any failure exits non-zero:
    on 8 held-out wavs, whose kept rows must load through ``ASRDataset``,
    and ``cli.avg_ckpt`` of the two snapshots, every leaf within half a
    float32 ulp of the float64 mean.
-11. One JSON line of kernels (launches on the paths above, error, kernel /
+11. The trainers' options and ``import_ckpt``, on a random stream of their
+   own: (a) SpecAugment at B = 32, T = 512, F = 40, the default masks and
+   the adaptive ones, from the same draws on the card and the CPU: the
+   masks equal, the masked values within 1e-6 relative, the card's ms;
+   (b) the flagship update as ``accum_steps: 2`` over two micro-batches of
+   16 (teacher-forced, so that they and the whole batch see the same
+   feedback) on the card, the CPU and in float64: every update and
+   Adadelta slot by the anchored rule of phase 8, and the same update as
+   one batch of 32 on the card against that float64 run; then the
+   accumulated update as a user runs it (frontend + SpecAugment + forward
+   + backward per micro-batch at tf 0.9, clip + Adadelta once) timed beside
+   the one-batch step, launches counted (K11, K2, K3, K9, K10, each on its
+   cluster route) and both profiled; (c) ``warmup_steps: 3, decay_steps:
+   5, end_scale: 0.1`` for 10 SGD updates on the card, each rate within
+   1e-6 of the float64 formula; (d) ``cli.train ASRTrainer`` as a
+   subprocess with accumulation, the schedule and SpecAugment, stopped
+   after 3 micro-steps: ``asr_opt.npz`` holds ``mini_step`` 1 and a
+   non-zero running mean, a trainer built on it reads every leaf back, and
+   a second invocation resumes to step 7; (e) one accumulated update of
+   each of the TAE, SAE, ADV (D and G) and char-LM trainers on the card,
+   the CPU and in float64: each micro-batch's loss and gradients by the
+   anchored rule (with its max-pool and ReLU witnesses), then every update
+   and slot; (f) ``cli.import_ckpt --export`` of phase 10's trained ASR
+   and LM and the import back, every array bit-equal, and the imported
+   pair behind the server under the default decode: its transcripts equal
+   the original pair's.
+12. One JSON line of kernels (launches on the paths above, error, kernel /
    plain / library times, bound), the nvidia-smi line, and last the
    contract line ``{"ok": true, "device": {...}}``.
 """
@@ -1556,7 +1582,9 @@ def trainer(config, tmp, name, tree, device):
 
 def profile_steps(torch, step, n):
     """torch.profiler over ``n`` steps: device time by kernel group and the
-    device's idle share of the traced wall time."""
+    device's idle share of the traced wall time.  Returns (wall ms a step,
+    busy ms a step, idle share), or None when the profiler saw no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1591,11 +1619,12 @@ def profile_steps(torch, step, n):
     if not spans:
         print("profile: torch.profiler saw no device time; the CUDA-event step time stands alone",
               flush=True)
-        return
+        return None
     print(f"profile of {n} steps: wall {wall_us / 1e3 / n:.3f} ms/step, device busy "
           f"{busy / 1e3 / n:.3f} ms/step, idle share {1 - busy / wall_us:.3f}", flush=True)
     for key, us in sorted(split.items(), key=lambda kv: -kv[1]):
         print(f"profile: {key}: {us / 1e3 / n:.3f} ms/step ({us / busy:.3f} of busy)", flush=True)
+    return wall_us / 1e3 / n, busy / 1e3 / n, 1 - busy / wall_us
 
 
 def check_train_step(torch, rng, config, asr_tree, tmp):
@@ -1878,7 +1907,7 @@ def anchored_losses(torch, tag, trainers, run, pooled=()):
     gradient (measured: one flipped window of 338,000 moves these gradients
     by 3e-4 to 4e-3, on the card in one run and on the CPU in another).
     Such a gradient may miss the anchored bound if it stays within
-    POOL_TOL; the print counts those."""
+    POOL_TOL; the print counts those.  Returns their names."""
     from ss_asr_tpu_torch.train.solver import joint_named_parameters
 
     res = []
@@ -1913,6 +1942,7 @@ def anchored_losses(torch, tag, trainers, run, pooled=()):
     if bad:
         fail(f"{tag}: card error against float64 above {ANCHOR_RATIO} x the CPU float32's and "
              f"{STEP_FLOOR}: {bad}")
+    return flipped
 
 
 def relu_flip_sweep(torch, tag, trainers, draw, seeds):
@@ -1930,7 +1960,7 @@ def relu_flip_sweep(torch, tag, trainers, draw, seeds):
     it is compared again with a float64 run whose ReLUs take the card's
     decisions; it passes only if the card took a decision float64 did not
     and it meets the rule against that run.  Every draw's readings are
-    printed."""
+    printed.  Returns the names that passed so, over all draws."""
     import numpy as np
 
     from ss_asr_tpu_torch.train.solver import joint_named_parameters
@@ -1963,6 +1993,7 @@ def relu_flip_sweep(torch, tag, trainers, draw, seeds):
         grads = {n: p.grad.cpu() for n, p in joint_named_parameters(t.models) if p.grad is not None}
         return float((rl + fl).detach()), grads, real.detach().cpu(), fake.detach().cpu(), pre
 
+    flipped = set()
     for seed in seeds:
         x, xl, y, yl = draw(np.random.default_rng(seed))
         card, cpu, ref = (run(t, dev, x, xl, y, yl)
@@ -1998,6 +2029,8 @@ def relu_flip_sweep(torch, tag, trainers, draw, seeds):
         if bad:
             fail(f"{tag} seed {seed}: card error against float64 above {ANCHOR_RATIO} x the CPU "
                  f"float32's and {STEP_FLOOR}, not explained by a flipped ReLU: {bad}")
+        flipped.update(over)
+    return flipped
 
 
 def timed_steps(torch, tag, trainer, optims, step, batch, need):
@@ -2452,7 +2485,8 @@ def check_tester_and_tools(torch, config, split, relay, lm_path, tmp):
     decode); then ``cli.pseudolabel`` on PSEUDO_UTTS held-out wavs with the new checkpoint
     and the LM (its kept rows must load through ``ASRDataset``), and
     ``cli.avg_ckpt`` of the run's two snapshots against a float64 mean.
-    Returns {path: launches}."""
+    Returns ({path: launches}, the trained ASR checkpoint, the held-out
+    signals it served)."""
     import numpy as np
     import yaml
 
@@ -2558,6 +2592,509 @@ def check_tester_and_tools(torch, config, split, relay, lm_path, tmp):
           f"{worst:.3f} float32 ulp of the float64 mean", flush=True)
     if len(snaps) != 2 or set(got) != set(trees[0]) or worst > 0.5:
         fail(f"cli.avg_ckpt: {len(snaps)} snapshots, worst {worst} ulp")
+    return launches, os.path.join(ck, "asr.npz"), sigs
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the trainers' options (accumulation, schedules, SpecAugment) and import_ckpt
+
+AUG_TOL = 1e-6  # SpecAugment on the card against the CPU: relative, on the masked values
+AUG_ADAPTIVE = {"n_time_masks": 10, "adaptive_size_ratio": 0.05, "adaptive_number_ratio": 0.04}
+AUGMENT = {"n_freq_masks": 2, "freq_mask_width": 8, "n_time_masks": 2, "time_mask_width": 16}
+ACCUM = 2  # the flagship update as ACCUM micro-batches of TRAIN_B // ACCUM
+ACCUM_UPDATES = 5  # timed accumulated updates (the median is reported)
+SCHEDULE = {"warmup_steps": 3, "decay_steps": 5, "end_scale": 0.1}
+SCHEDULE_UPDATES = 10
+RATE_TOL = 1e-6
+OPT_CLI_STEPS = 3  # odd: the first cli.train run stops in the middle of an accumulation
+AUX_MICRO_B = 8  # the micro-batch of the auxiliary trainers' accumulated updates
+LM_MICRO_B = 16  # ... and of the char-LM's
+
+
+def float64_optim(opt):
+    """A fresh optimizer's slots and running mean in the dtype its
+    parameters have now (after ``module.double()``)."""
+    opt.state = {s: {k: opt.params[k].new_zeros(opt.params[k].shape) for k in v}
+                 for s, v in opt.state.items()}
+    opt.acc_grads = {k: opt.params[k].new_zeros(opt.params[k].shape) for k in opt.acc_grads}
+
+
+def check_augment(torch, rng):
+    """SpecAugment at the flagship (B = 32, T = 512, F = 40), the default
+    masks and the adaptive ones, on the card and on the CPU from the same
+    draws: the masks equal, the values within AUG_TOL relative; the
+    card's time from CUDA events."""
+    import numpy as np
+
+    from ss_asr_tpu_torch.ops import augment
+
+    lens = rng.integers(TRAIN_MIN_FRAMES, FRAMES + 1, size=TRAIN_B)
+    lens[0] = FRAMES
+    x = (3.0 * rng.standard_normal((TRAIN_B, FRAMES, 40)) - 5.0).astype(np.float32)
+    x[np.arange(FRAMES)[None, :] >= lens[:, None]] = 0.0
+    xc, lc = torch.from_numpy(x), torch.from_numpy(lens)
+    xd, ld = xc.to(DEVICE), lc.to(DEVICE)
+    gen = torch.Generator().manual_seed(SEED)
+    for tag, d in (("default", AUGMENT), ("adaptive", {**AUGMENT, **AUG_ADAPTIVE})):
+        cfg = augment.SpecAugmentConfig(**d)
+        draws = augment.draw_uniforms(TRAIN_B, cfg, gen, "cpu")
+        dd = tuple(u.to(DEVICE) for u in draws)
+        want = augment.spec_augment(xc, lc, cfg, draws=draws)
+        got = augment.spec_augment(xd, ld, cfg, draws=dd).cpu()
+        masked = want != xc
+        same_masks = torch.equal(got != xc, masked)
+        err = float(((got - want).abs() / want.abs().clamp(min=1e-30))[masked].max())
+        ms = cuda_ms(torch, lambda: augment.spec_augment(xd, ld, cfg, draws=dd), reps=20)
+        print(f"SpecAugment {tag} B={TRAIN_B} T={FRAMES} F=40: masks equal the CPU's "
+              f"{same_masks}, {float(masked.float().mean()):.4f} of the features masked, masked "
+              f"values rel err {err:.3e}; card {ms:.4f} ms", flush=True)
+        if not (same_masks and masked.any() and err <= AUG_TOL):
+            fail(f"SpecAugment {tag}: masks equal {same_masks}, rel err {err:.3e}")
+
+
+def update_errors(torch, tag, ts, optims, before, excused=()):
+    """One accumulated update on the card (``ts[0]``), on the CPU and in
+    float64 on the CPU: each trained parameter's update and each slot of
+    the optimizers by the anchored rule (the card's relative L2 error
+    against float64 at most ANCHOR_RATIO times the CPU float32's, or below
+    STEP_FLOOR), except the names in ``excused``, whose gradients passed
+    the anchored checks only through a flipped max-pool window or ReLU (a
+    discrete choice moves their update as a whole; printed, not held).
+    Every optimizer must have ended its first update, and every parameter
+    outside the masks must be bit-unchanged on the card."""
+    worst, bad, loose = (0.0, 0.0, ""), [], []
+    for i, opt in enumerate(optims(ts[0])):
+        trio = [optims(t)[i] for t in ts]
+        if any((o.gradient_step, o.mini_step) != (1, 0) for o in trio):
+            fail(f"{tag}: gradient_step / mini_step {[(o.gradient_step, o.mini_step) for o in trio]}")
+        rows = [(n, n, [o.params[n].detach().cpu().double() - before[j][n]
+                        for j, o in enumerate(trio)]) for n in sorted(opt.mask)]
+        rows += [(f"{s} {n}", n, [o.state[s][n].cpu().double() for o in trio])
+                 for s in opt.slots for n in sorted(opt.mask)]
+        for name, param, (card, cpu, ref) in rows:
+            k, c = rel_l2(torch, card, ref), rel_l2(torch, cpu, ref)
+            if param in excused:
+                loose.append(f"{name} {k:.3e}")
+                continue
+            worst = max(worst, (k, c, name))
+            if not k <= max(ANCHOR_RATIO * c, STEP_FLOOR):
+                bad.append(f"{name} (card {k:.3e}, CPU {c:.3e})")
+    trained = set().union(*(o.mask for o in optims(ts[0])))
+    moved = [n for n, p in optims(ts[0])[0].params.items()
+             if n not in trained and not torch.equal(p.detach().cpu().double(), before[0][n])]
+    print(f"{tag}: one accumulated update ({ACCUM} micro-batches), every update and slot against "
+          f"float64: worst card rel L2 {worst[0]:.3e} (CPU float32 {worst[1]:.3e}, {worst[2]})"
+          + (f"; behind a flipped max-pool window or ReLU, not held: {loose}" if loose else ""),
+          flush=True)
+    if moved:
+        fail(f"{tag}: parameters outside the masks moved: {moved}")
+    if bad:
+        fail(f"{tag}: card error against float64 above {ANCHOR_RATIO} x the CPU float32's and "
+             f"{STEP_FLOOR}: {bad}")
+
+
+def snapshot(torch, ts, optims):
+    """Each trainer's parameters under its optimizers' names, as float64 on the host."""
+    return [{n: p.detach().cpu().double().clone() for o in optims(t) for n, p in o.params.items()}
+            for t in ts]
+
+
+def check_accumulation(torch, rng, config, asr_tree, tmp):
+    """The flagship update as ACCUM micro-batches of TRAIN_B // ACCUM
+    (``accum_steps: 2``, teacher-forced so that the micro-batches and the
+    whole batch see the same feedback) on the card, the CPU and in float64:
+    the update and the Adadelta slots by the anchored rule, and the same
+    update as one batch of TRAIN_B on the card against the same float64
+    run.  Then the accumulated update with SpecAugment at tf 0.9 (frontend
+    from the waveforms + augment + forward + backward per micro-batch, clip
+    + Adadelta once) timed, its launches counted, and profiled beside the
+    whole-batch step.  Returns {path: launches}."""
+    from ss_asr_tpu_torch.ops.frontend import log_mel_fbank_batch
+
+    wave, n, y = train_batch(torch, rng)
+    with torch.no_grad():
+        x, x_lens = log_mel_fbank_batch(wave, n, SR)
+    mb = TRAIN_B // ACCUM
+    parts = [slice(i * mb, (i + 1) * mb) for i in range(ACCUM)]
+    c = copy.deepcopy(config)
+    c["asr"]["mdl"]["tf_rate"] = 1.0
+    c["asr"]["opt"]["accum_steps"] = ACCUM
+    ts = [trainer(c, tmp, f"accum_{tag}", asr_tree, dev)
+          for tag, dev in (("card", DEVICE), ("cpu", "cpu"), ("f64", "cpu"))]
+    ts[2].model.double()
+    float64_optim(ts[2].optim)
+    before = snapshot(torch, ts, lambda t: [t.optim])
+    for t, dev in zip(ts, (DEVICE, "cpu", "cpu")):
+        dt = next(t.model.parameters()).dtype
+        for sl in parts:
+            t.step(x[sl].to(dev).to(dt), x_lens[sl].to(dev), y[sl].to(dev))
+    update_errors(torch, f"ASR update {ACCUM} x B={mb} T={x.shape[1]} L={TRAIN_L}", ts,
+                  lambda t: [t.optim], before)
+    c1 = copy.deepcopy(c)
+    c1["asr"]["opt"]["accum_steps"] = 1
+    whole = trainer(c1, tmp, "accum_whole", asr_tree, DEVICE)
+    whole.step(x, x_lens, y)
+    worst, bad = (0.0, ""), []
+    for name in sorted(whole.optim.mask):
+        got = whole.optim.params[name].detach().cpu().double() - before[0][name]
+        ref = ts[2].optim.params[name].detach().cpu().double() - before[2][name]
+        cpu = ts[1].optim.params[name].detach().cpu().double() - before[1][name]
+        k, cc = rel_l2(torch, got, ref), rel_l2(torch, cpu, ref)
+        worst = max(worst, (k, name))
+        if not k <= max(ANCHOR_RATIO * cc, STEP_FLOOR):
+            bad.append(f"{name} (card B={TRAIN_B} {k:.3e}, CPU {ACCUM} x {mb} {cc:.3e})")
+    print(f"ASR update as one batch of B={TRAIN_B} on the card against the float64 run of "
+          f"{ACCUM} x {mb}: worst rel L2 {worst[0]:.3e} ({worst[1]})", flush=True)
+    if bad:
+        fail(f"ASR update of B={TRAIN_B} against {ACCUM} x {mb} in float64: {bad}")
+
+    # timed: the options as a user sets them (tf 0.9, SpecAugment, accumulation)
+    ct = copy.deepcopy(config)
+    ct["asr"]["augment"] = dict(AUGMENT)
+    ct["asr"]["opt"]["accum_steps"] = ACCUM
+    acc = trainer(ct, tmp, "accum_timed", asr_tree, DEVICE)
+    ct1 = copy.deepcopy(ct)
+    ct1["asr"]["opt"]["accum_steps"] = 1
+    one = trainer(ct1, tmp, "accum_one", asr_tree, DEVICE)
+
+    def update():
+        for sl in parts:
+            with torch.no_grad():
+                fb, fl = log_mel_fbank_batch(wave[sl], n[sl], SR)
+            acc.step(fb, fl, y[sl])
+
+    def step():
+        with torch.no_grad():
+            fb, fl = log_mel_fbank_batch(wave, n, SR)
+        one.step(fb, fl, y)
+
+    readings = {}
+    for tag, fn, t in ((f"accumulated update {ACCUM} x B={mb}", update, acc),
+                       (f"one step B={TRAIN_B}", step, one)):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        zero_launches()
+        updates0, times = t.optim.gradient_step, []
+        for _ in range(ACCUM_UPDATES):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = read_launches()
+        if t is acc and (t.optim.gradient_step - updates0, t.optim.mini_step) != (ACCUM_UPDATES, 0):
+            fail(f"{tag}: {t.optim.gradient_step - updates0} updates, mini_step "
+                 f"{t.optim.mini_step} after {ACCUM_UPDATES}")
+        ms = statistics.median(times)
+        print(f"{tag} (frontend + SpecAugment + forward + backward, clip + Adadelta once, "
+              f"tf 0.9): median of {ACCUM_UPDATES} {ms:.3f} ms wall, {TRAIN_B / ms * 1e3:.1f} "
+              f"utt/s (min {min(times):.3f}, max {max(times):.3f}); launches per update "
+              f"{ {k: v // ACCUM_UPDATES for k, v in launches.items() if v} }", flush=True)
+        for name in ("fbank", "lstm_fwd", "lstm_bwd", "spell_fwd", "spell_bwd"):
+            if launches[name] < ACCUM_UPDATES:
+                fail(f"{tag}: launched {name} {launches[name]} times in {ACCUM_UPDATES} updates")
+        require_cluster_route(tag, launches)
+        readings[tag] = (ms, profile_steps(torch, fn, 2), launches)
+    (a_ms, a_prof, a_l), (o_ms, o_prof, _) = readings.values()
+    idle = [f"{p[2]:.3f}" if p else "not measured" for p in (a_prof, o_prof)]
+    print(f"accumulated update {ACCUM} x B={mb}: {a_ms:.3f} ms, idle share {idle[0]}; one step "
+          f"of B={TRAIN_B}: {o_ms:.3f} ms, idle share {idle[1]}", flush=True)
+    return {"accumulated update": a_l}
+
+
+def check_schedule(torch):
+    """A warm-up / cosine schedule on the card: SGD on a zeroed parameter
+    with a gradient of ones, so that the parameter after each update is
+    minus that update's rate; each rate within RATE_TOL of the float64
+    formula (``make_schedule(..., dtype=np.float64)``)."""
+    import numpy as np
+
+    from ss_asr_tpu_torch.train.optim import Optimizer, make_schedule
+
+    p = torch.nn.Parameter(torch.zeros(4, device=DEVICE))
+    opt = Optimizer([("w", p)], "SGD", 1.0, **SCHEDULE)
+    f64 = make_schedule(1.0, dtype=np.float64, **SCHEDULE)
+    got, want = [], []
+    for u in range(SCHEDULE_UPDATES):
+        with torch.no_grad():
+            p.zero_()
+        p.grad = torch.ones_like(p)
+        opt.step()
+        got.append(0.0 - float(p.detach()[0]))
+        want.append(f64(u))
+    err = max(abs(g - w) for g, w in zip(got, want))
+    print(f"schedule {SCHEDULE} (SGD, rate 1.0) on the card, {SCHEDULE_UPDATES} updates: rates "
+          f"{[round(g, 7) for g in got]}; worst |card - float64 formula| {err:.3e}", flush=True)
+    if err > RATE_TOL or opt.sched_count != SCHEDULE_UPDATES:
+        fail(f"schedule: worst rate error {err:.3e}, count {opt.sched_count}")
+
+
+def check_cli_options(rng, config, tmp):
+    """``cli.train ASRTrainer`` as a subprocess with ``accum_steps: 2``, a
+    warm-up / cosine schedule and ``asr.augment`` for OPT_CLI_STEPS (odd)
+    micro-steps: its ``asr_opt.npz`` holds ``mini_step`` 1 and a non-zero
+    running mean; a trainer built on it reads every leaf back; a second
+    invocation resumes and ends the accumulation."""
+    import numpy as np
+    import yaml
+
+    from ss_asr_tpu_torch import convert
+    from ss_asr_tpu_torch.train.asr_trainer import ASRTrainer
+    from ss_asr_tpu_torch.train.solver import make_paras
+    from ss_asr_tpu_torch.utils import checkpoint as ckpt
+
+    root = os.path.join(tmp, "opt_corpus")
+    os.makedirs(root)
+    split = held_out_split(write_corpus(rng, root, CLI_UTTS))
+    runs, result = os.path.join(tmp, "opt_runs"), os.path.join(tmp, "opt_result")
+    ck = os.path.join(result, "opts")
+
+    def cfg(n_epochs):
+        c = train_config(config, split, n_epochs)
+        c["asr"]["opt"].update(accum_steps=ACCUM, **SCHEDULE)
+        c["asr"]["augment"] = dict(AUGMENT)
+        return c
+
+    def run(n_epochs):
+        path = os.path.join(tmp, f"opts_{n_epochs}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg(n_epochs), f)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ss_asr_tpu_torch.cli.train", "ASRTrainer", "opts", path, runs,
+             result, "--seed", str(SEED), "--verbose", "0", "--device", DEVICE],
+            cwd=HERE, env={**os.environ, "PYTHONPATH": HERE}, capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode != 0:
+            fail(f"cli.train (options) exited {proc.returncode}: {proc.stderr[-3000:]}")
+        with open(os.path.join(ck, "tracker.json")) as f:
+            step = json.load(f)["asr"]["step"]
+        return time.perf_counter() - t0, step, ckpt.load_opt_state(os.path.join(ck, "asr_opt.npz"))
+
+    secs, step, leaves = run(OPT_CLI_STEPS)
+    acc = leaves[-36:]  # the running mean of the LAS's 36 leaves closes the layout
+    mean_abs = float(np.mean([np.abs(a).mean() for a in acc]))
+    print(f"cli.train ASRTrainer (accum_steps {ACCUM}, {SCHEDULE}, augment): {step} micro-steps "
+          f"in {secs:.1f} s (process included); asr_opt.npz: {len(leaves)} leaves, mini_step "
+          f"{int(leaves[3])}, gradient_step {int(leaves[4])}, schedule count "
+          f"{int(leaves[5 + 2 * 36])}, running mean |g| {mean_abs:.3e}", flush=True)
+    if not (step == OPT_CLI_STEPS and len(leaves) == 5 + 2 * 36 + 1 + 36 and int(leaves[3]) == 1
+            and int(leaves[4]) == 1 and int(leaves[5 + 2 * 36]) == 1 and mean_abs > 0):
+        fail(f"cli.train (options): step {step}, {len(leaves)} leaves, mini_step {leaves[3]}")
+    paras = make_paras(name="opts", logdir=runs, ckpdir=result, seed=SEED, verbose=False)
+    t = ASRTrainer(cfg(1), paras, device=DEVICE)
+    t.set_model()
+    got = convert.asr_opt_state_leaves(t.optim, t.model)
+    t.lg.close()
+    same = len(got) == len(leaves) and all(
+        g.dtype == w.dtype and np.array_equal(g, w) for g, w in zip(got, leaves))
+    print(f"ASRTrainer on that checkpoint: {len(got)} optimizer leaves read back, equal leaf for "
+          f"leaf {same}; mini_step {t.optim.mini_step}", flush=True)
+    if not (same and t.optim.mini_step == 1):
+        fail("the resumed trainer did not read the optimizer state back leaf for leaf")
+    secs, step, leaves = run(OPT_CLI_STEPS + 1)
+    with open(os.path.join(runs, "opts", "asr", "metrics.jsonl")) as f:
+        recs = [r for r in map(json.loads, f) if r["key"] == "asr_train_loss"]
+    print(f"cli.train resumed: steps {[r['step'] for r in recs[OPT_CLI_STEPS:]]} in {secs:.1f} s; "
+          f"mini_step {int(leaves[3])}, gradient_step {int(leaves[4])}; losses "
+          f"{[round(r['value'], 4) for r in recs]}", flush=True)
+    if not (step == 2 * OPT_CLI_STEPS + 1 and int(leaves[4]) == (2 * OPT_CLI_STEPS + 1) // ACCUM
+            and int(leaves[3]) == 1 and np.isfinite([r["value"] for r in recs]).all()
+            and [r["step"] for r in recs] == list(range(2 * OPT_CLI_STEPS + 1))):
+        fail(f"cli.train (options) did not resume: step {step}, {[r['step'] for r in recs]}")
+
+
+def check_aux_accumulation(torch, rng, config, asr_tree, tmp):
+    """One accumulated update (``accum_steps: 2``, micro-batches of
+    AUX_MICRO_B; the char-LM's of LM_MICRO_B chunks) of each of the TAE,
+    SAE, ADV (G and D) and char-LM trainers at the full width on the card,
+    the CPU and in float64: each micro-batch's loss and gradients by the
+    anchored rule (with its max-pool and ReLU witnesses), then the update
+    and the slots (``update_errors``)."""
+    from ss_asr_tpu_torch import convert
+    from ss_asr_tpu_torch.models import charlm, las
+    from ss_asr_tpu_torch.models import discriminator as disc_mod
+    from ss_asr_tpu_torch.models import speech_autoencoder as sae_mod
+    from ss_asr_tpu_torch.models import text_autoencoder as tae_mod
+    from ss_asr_tpu_torch.ops.frontend import log_mel_fbank_batch
+    from ss_asr_tpu_torch.train.adv_trainer import ADVTrainer
+    from ss_asr_tpu_torch.train.lm_trainer import CHARLMTrainer
+    from ss_asr_tpu_torch.train.sae_trainer import SAETrainer
+    from ss_asr_tpu_torch.train.solver import make_paras
+    from ss_asr_tpu_torch.train.tae_trainer import TAETrainer
+    from ss_asr_tpu_torch.utils.checkpoint import save_pytree
+
+    c = copy.deepcopy(config)
+    for sec in (c["tae"]["opt"], c["sae"]["opt"], c["adv"]["G_opt"], c["adv"]["D_opt"],
+                c["char_lm"]["opt"]):
+        sec["accum_steps"] = ACCUM
+    asr_cfg = las.ASRConfig.from_dict(c["asr"]["mdl"])
+    tae_tree = convert.init_tae_numpy(SEED + 13, tae_mod.TAEConfig.from_dict(c["tae"]["mdl"]))
+    sae_cfg = sae_mod.SAEConfig.from_dict({**c["sae"]["mdl"],
+                                           "listener_out_dim": asr_cfg.enc_out_dim})
+    sae_params, sae_bn = convert.init_sae_numpy(SEED + 14, sae_cfg)
+    disc_tree = convert.init_disc_numpy(SEED + 15, disc_mod.DiscriminatorConfig.from_dict(
+        {**c["adv"]["mdl"], "in_dim": asr_cfg.enc_out_dim}))
+    B = ACCUM * AUX_MICRO_B
+    parts = [slice(i * AUX_MICRO_B, (i + 1) * AUX_MICRO_B) for i in range(ACCUM)]
+    wave, n, _ = train_batch(torch, rng)
+    with torch.no_grad():
+        x, x_lens = log_mel_fbank_batch(wave[:B], n[:B], SR)
+
+    def three(cls, name, trees, optims):
+        ts = [aux_trainer(cls, c, tmp, f"acc_{name}_{tag}", trees, dev)
+              for tag, dev in (("card", DEVICE), ("cpu", "cpu"), ("f64", "cpu"))]
+        for m in ts[2].models.values():
+            m.double()
+        for o in optims(ts[2]):
+            float64_optim(o)
+        return ts
+
+    def run(tag, ts, optims, micro):
+        """``micro(ts, sl)`` checks one micro-batch and leaves its gradients
+        -> the names it let pass through a witness; then each optimizer steps."""
+        before, excused = snapshot(torch, ts, optims), set()
+        for sl in parts:
+            excused |= set(micro(ts, sl))
+            for t in ts:
+                for o in optims(t):
+                    o.step()
+        update_errors(torch, tag, ts, optims, before, excused)
+
+    def dt(t, key):
+        return next(t.models[key].parameters()).dtype
+
+    # TAE
+    y, _, yn, nl = text_batch(torch, rng, B, c["tae"]["drop_rate"])
+    ts = three(TAETrainer, "tae", {"asr": asr_tree, "tae": tae_tree}, lambda t: [t.optim])
+    run(f"TAE (Adam) {ACCUM} x B={AUX_MICRO_B}", ts, lambda t: [t.optim],
+        lambda ts, sl: anchored_losses(
+            torch, f"TAE micro-batch {sl.start // AUX_MICRO_B}", ts,
+            lambda t, dev: t.loss_of(y[sl].to(dev), yn[sl].to(dev), nl[sl].to(dev))[0]))
+    # SAE, with listener_lr_scale from the config (an update scale inside the accumulation)
+    ts = three(SAETrainer, "sae", {"asr": asr_tree, "sae": {"params": sae_params,
+                                                            "bn_state": sae_bn}},
+               lambda t: [t.optim])
+    run(f"SAE (Adam) {ACCUM} x B={AUX_MICRO_B} T={x.shape[1]}", ts, lambda t: [t.optim],
+        lambda ts, sl: anchored_losses(
+            torch, f"SAE micro-batch {sl.start // AUX_MICRO_B}", ts,
+            lambda t, dev: t.recon_loss(x[sl].to(dev).to(dt(t, "sae")), x_lens[sl].to(dev),
+                                        True)[0], pooled=("sae.encoder.",)))
+    # ADV: the D-step (the ReLU witness of relu_flip_sweep), then the G-step, per micro-batch
+    ya, yla, _, _ = text_batch(torch, rng, B, 0.0)
+    ts = three(ADVTrainer, "adv", {"asr": asr_tree, "tae": tae_tree, "adv": disc_tree},
+               lambda t: [t.D_optim, t.G_optim])
+    before, excused = snapshot(torch, ts, lambda t: [t.D_optim, t.G_optim]), set()
+    for i, sl in enumerate(parts):
+        excused |= relu_flip_sweep(torch, f"ADV D micro-batch {i}", ts,
+                                   lambda r: (x[sl], x_lens[sl], ya[sl], yla[sl]), (i,))
+        for t, dev in zip(ts, (DEVICE, "cpu", "cpu")):
+            t.zero_grad()
+            rl, fl, _, _ = t.d_losses(x[sl].to(dev).to(dt(t, "disc")), x_lens[sl].to(dev),
+                                      ya[sl].to(dev), yla[sl].to(dev), t.label_smoothing)
+            (rl + fl).backward()
+            t.D_optim.step()
+        excused |= set(anchored_losses(
+            torch, f"ADV G micro-batch {i}", ts,
+            lambda t, dev: t.g_loss(x[sl].to(dev).to(dt(t, "disc")), x_lens[sl].to(dev))))
+        for t in ts:
+            t.G_optim.step()
+    update_errors(torch, f"ADV D + G (Adadelta) {ACCUM} x B={AUX_MICRO_B}", ts,
+                  lambda t: [t.D_optim, t.G_optim], before, excused)
+    # the char-LM on the corpus of phase 5
+    lmc = c["char_lm"]
+    lmc.update(train_index=os.path.join(tmp, "lm_corpus.txt"))
+    lm_cfg = charlm.CharLMConfig.from_dict(lmc["mdl"])
+    lm_tree = convert.init_charlm_numpy(SEED + 16, lm_cfg)
+    ts = []
+    for tag, dev in (("card", DEVICE), ("cpu", "cpu"), ("f64", "cpu")):
+        paras = make_paras(name=f"acc_lm_{tag}", logdir=os.path.join(tmp, "runs"),
+                           ckpdir=os.path.join(tmp, "result"), seed=SEED, verbose=False)
+        save_pytree(os.path.join(tmp, "result", f"acc_lm_{tag}", "char_lm.npz"), lm_tree)
+        t = CHARLMTrainer(c, paras, device=dev)
+        t.load_data()
+        t.set_model()
+        ts.append(t)
+    ts[2].lm.double()
+    float64_optim(ts[2].optim)
+    L = lmc["chunk_size"]
+    ids = torch.from_numpy(rng.integers(3, lm_cfg.vocab_size, size=(ACCUM * LM_MICRO_B, L)))
+    gen = torch.Generator().manual_seed(SEED)
+    draws = [las.draw_scheduled_sampling(L, LM_MICRO_B, lm_cfg.tf_rate, lm_cfg, gen, device="cpu")
+             for _ in range(ACCUM)]
+    lm_parts = [slice(i * LM_MICRO_B, (i + 1) * LM_MICRO_B) for i in range(ACCUM)]
+    before = snapshot(torch, ts, lambda t: [t.optim])
+    for i, sl in enumerate(lm_parts):
+        tf_draws, gumbel = draws[i]
+        anchored_losses(torch, f"char-LM micro-batch {i}", ts,
+                        lambda t, dev: t.loss_of(ids[sl].to(dev), tf_draws.to(dev), gumbel.to(
+                            dev).to(t.lm.out.weight.dtype))[0])
+        for t in ts:
+            t.optim.step()
+    update_errors(torch, f"char-LM (Adam) {ACCUM} x B={LM_MICRO_B} L={L}", ts,
+                  lambda t: [t.optim], before)
+
+
+def check_import(torch, config, asr_path, lm_path, sigs, tmp):
+    """``cli.import_ckpt --export`` of the trained ASR and LM to
+    reference-keyed ``.cpt`` files, and the import back: every array equal
+    bit for bit; the imported pair behind the server under the default
+    decode (beam 3 + LM 0.5): replies equal the direct batch, whose
+    transcripts equal the original pair's.  Returns {path: launches}."""
+    import numpy as np
+
+    from ss_asr_tpu_torch.api import Transcriber
+    from ss_asr_tpu_torch.cli import import_ckpt
+    from ss_asr_tpu_torch.utils import checkpoint as ckpt
+
+    src, cpt, back = (os.path.join(tmp, d) for d in ("import_src", "import_cpt", "import_back"))
+    os.makedirs(src)
+    shutil.copyfile(asr_path, os.path.join(src, "asr.npz"))
+    shutil.copyfile(lm_path, os.path.join(src, "char_lm.npz"))
+    rc1, out1 = run_main(import_ckpt.main, [src, cpt, "--export"])
+    rc2, out2 = run_main(import_ckpt.main, [cpt, back])
+    n_leaves, unequal = 0, []
+    for name in ("asr.npz", "char_lm.npz"):
+        a = ckpt._flatten(ckpt.load_pytree(os.path.join(src, name)))
+        b = ckpt._flatten(ckpt.load_pytree(os.path.join(back, name)))
+        n_leaves += len(a)
+        unequal += [f"{name}:{k}" for k in a if not (k in b and a[k].dtype == b[k].dtype
+                                                       and np.array_equal(a[k], b[k]))]
+        unequal += [f"{name}:{k} (extra)" for k in b if k not in a]
+    print(f"cli.import_ckpt: --export {sorted(os.listdir(cpt))} (exit {rc1}), imported back "
+          f"{sorted(os.listdir(back))} (exit {rc2}): {n_leaves} leaves, bit-equal "
+          f"{not unequal}", flush=True)
+    if rc1 or rc2 or unequal:
+        fail(f"cli.import_ckpt: exits {rc1} / {rc2}, unequal {unequal[:5]}")
+    orig = Transcriber.from_checkpoint(os.path.join(src, "asr.npz"), config,
+                                       lm_path=os.path.join(src, "char_lm.npz"), device=DEVICE,
+                                       sr=PRE_SR)
+    imp = Transcriber.from_checkpoint(os.path.join(back, "asr.npz"), config,
+                                      lm_path=os.path.join(back, "char_lm.npz"), device=DEVICE,
+                                      sr=PRE_SR)
+    launches = serve_phase(torch, "serve default imported", imp, sigs,
+                           ("fbank", "lstm_fwd", "beam_decode_lm"), sr=PRE_SR, min_chars=3)
+    want, got = orig.transcribe_signal_batch(sigs, sr=PRE_SR), imp.transcribe_signal_batch(
+        sigs, sr=PRE_SR)
+    print(f"the imported pair's transcripts equal the original pair's: {got == want} "
+          f"({got[:3]})", flush=True)
+    if got != want:
+        fail(f"the imported pair transcribes {got}, the original {want}")
+    return launches
+
+
+def check_options(torch, rng, config, asr_tree, asr_path, lm_path, sigs, tmp):
+    """Phase 11: SpecAugment, gradient accumulation at the flagship, a
+    schedule, ``cli.train`` with the options and a resume in the middle of
+    an accumulation, accumulated updates of the other trainers, and
+    ``import_ckpt`` of the trained pair.  Returns {path: launches}."""
+    t0 = time.perf_counter()
+    check_augment(torch, rng)
+    launches = check_accumulation(torch, rng, config, asr_tree, tmp)
+    check_schedule(torch)
+    check_cli_options(rng, config, tmp)
+    check_aux_accumulation(torch, rng, config, asr_tree, tmp)
+    launches.update(check_import(torch, config, asr_path, lm_path, sigs, tmp))
+    print(f"phase 11 (options, import_ckpt): {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
 
 
@@ -2664,7 +3201,12 @@ def main() -> None:
         launches.update(check_aux_trainers(torch, rng, config, asr_tree, tmp))
         split, relay = check_cli_seed(config, idx, tmp)
         # phase 10: the tester, pseudo-labels and checkpoint averaging
-        launches.update(check_tester_and_tools(torch, config, split, relay, lm_path, tmp))
+        more, trained_asr, held_sigs = check_tester_and_tools(torch, config, split, relay,
+                                                              lm_path, tmp)
+        launches.update(more)
+        # phase 11: the trainers' options and import_ckpt, on a stream of their own
+        launches.update(check_options(torch, np.random.default_rng(SEED + 11), config, asr_tree,
+                                      trained_asr, lm_path, held_sigs, tmp))
     # each kernel's launches on the serving, training and test paths, each path counted on its own
     counts = {name: sum(ls[name] for ls in launches.values()) for name in results}
     cluster_launches = {name: sum(ls[counter] for ls in launches.values())

@@ -266,60 +266,91 @@ def _joint_tree(models: Dict, acc: Dict[str, torch.Tensor], prefixed: bool) -> T
         for key, m in models.items()}
 
 
+def _head(opt) -> List[np.ndarray]:
+    """The optax state's scalar leaves before the slots: the three NaN-skip
+    counters, with accumulation ``mini_step`` and ``gradient_step``, then
+    Adam's ``count``."""
+    leaves = [t.detach().cpu().numpy()
+              for t in (opt.notfinite_count, opt.last_finite, opt.total_notfinite)]
+    if opt.accum_steps > 1:
+        leaves += [np.asarray(opt.mini_step, np.int32), np.asarray(opt.gradient_step, np.int32)]
+    if opt.opt_type == "adam":
+        leaves.append(opt.count.detach().cpu().numpy())
+    return leaves
+
+
 def opt_state_leaves(opt, models: Dict, prefixes: Optional[Sequence[Tuple[str, ...]]] = None,
                      prefixed: bool = True) -> List[np.ndarray]:
     """The state of an optimizer over the joint parameters of ``models``
     ({"asr": LAS, "tae": ...}; ``opt.params`` named ``<model key>.<state_dict
     key>``) as the leaves of the JAX package's optax state for the joint tree
-    (``checkpoint.save_opt_state`` writes them), masked to the key-path
-    ``prefixes`` (``optax.masked``: the frozen leaves hold no state): the
-    three NaN-skip counters, Adam's ``count``, then each accumulator over the
-    masked tree, transposed like the weights."""
-    leaves = [t.detach().cpu().numpy()
-              for t in (opt.notfinite_count, opt.last_finite, opt.total_notfinite)]
-    if opt.opt_type == "adam":
-        leaves.append(opt.count.detach().cpu().numpy())
+    (``checkpoint.save_opt_state`` writes them), in ``jax.tree.leaves``
+    order: ``_head``, each slot over the tree masked to the key-path
+    ``prefixes`` (``optax.masked``: the frozen leaves hold no slot),
+    transposed like the weights, the schedule's ``count`` when the rate is
+    scheduled, and with accumulation ``acc_grads`` over EVERY leaf (``MultiSteps``
+    wraps the masked chain, so the frozen leaves' running mean is kept too)."""
+    leaves = _head(opt)
     for slot in opt.slots:
         leaves += _masked_leaves(_joint_tree(models, opt.state[slot], prefixed), prefixes)
+    if opt.scheduled:
+        leaves.append(np.asarray(opt.sched_count, np.int32))
+    if opt.accum_steps > 1:
+        leaves += tree_leaves(_joint_tree(models, opt.acc_grads, prefixed))
     return leaves
+
+
+def _fill(node, it, prefixes, path=()):
+    """``node`` (a zero tree) with the leaves under ``prefixes`` taken from ``it``."""
+    if isinstance(node, dict):
+        return {k: _fill(node[k], it, prefixes, path + (k,)) for k in sorted(node)}
+    keep = prefixes is None or any(path[: len(p)] == tuple(p) for p in prefixes)
+    return np.asarray(next(it), np.float32) if keep else node
+
+
+def _load_named(dest: Dict[str, torch.Tensor], models: Dict, tree: Tree, prefixed: bool) -> None:
+    """Copy a joint tree into the per-name tensors ``dest`` (those it holds)."""
+    for key in models:
+        for k, t in STATE_FROM_PARAMS[key](tree[key]).items():
+            name = f"{key}.{k}" if prefixed else k
+            if name in dest:
+                dest[name].copy_(t)
 
 
 def load_opt_state_leaves(opt, models: Dict, prefixes, leaves: List[np.ndarray],
                           prefixed: bool = True) -> bool:
     """Set ``opt``'s state from ``opt_state_leaves``-ordered leaves (either
     package's file).  A leaf count that does not fit (another optimizer
-    type) leaves ``opt`` fresh and returns False, as the JAX package does; a
-    leaf of the wrong shape raises."""
+    type, schedule or accumulation) leaves ``opt`` fresh and returns False,
+    as the JAX package does; a leaf of the wrong shape raises."""
     zeros = _joint_tree(models, {}, prefixed)
     like = _masked_leaves(zeros, prefixes)
-    n_head = 4 if opt.opt_type == "adam" else 3
-    if len(leaves) != n_head + len(like) * len(opt.slots):
+    every = tree_leaves(zeros) if opt.accum_steps > 1 else []
+    n_head = len(_head(opt))
+    n_slots = len(like) * len(opt.slots)
+    if len(leaves) != n_head + n_slots + int(opt.scheduled) + len(every):
         return False
-    for got, want in zip(leaves[n_head:], like * len(opt.slots)):
+    tail = leaves[n_head + n_slots + int(opt.scheduled):]
+    for got, want in zip(leaves[n_head:n_head + n_slots] + tail, like * len(opt.slots) + every):
         if np.shape(got) != want.shape:
             raise ValueError(f"optimizer state leaf of shape {np.shape(got)}, the model has "
                              f"{want.shape}")
     dev = opt.notfinite_count.device
-    opt.notfinite_count = torch.tensor(int(leaves[0]), dtype=torch.int32, device=dev)
-    opt.last_finite = torch.tensor(bool(leaves[1]), dtype=torch.bool, device=dev)
-    opt.total_notfinite = torch.tensor(int(leaves[2]), dtype=torch.int32, device=dev)
+    head = iter(leaves[:n_head])
+    opt.notfinite_count = torch.tensor(int(next(head)), dtype=torch.int32, device=dev)
+    opt.last_finite = torch.tensor(bool(next(head)), dtype=torch.bool, device=dev)
+    opt.total_notfinite = torch.tensor(int(next(head)), dtype=torch.int32, device=dev)
+    if opt.accum_steps > 1:
+        opt.mini_step, opt.gradient_step = int(next(head)), int(next(head))
     if opt.opt_type == "adam":
-        opt.count = torch.tensor(int(leaves[3]), dtype=torch.int32, device=dev)
-
-    def fill(node, it, path=()):
-        if isinstance(node, dict):
-            return {k: fill(node[k], it, path + (k,)) for k in sorted(node)}
-        keep = prefixes is None or any(path[: len(p)] == tuple(p) for p in prefixes)
-        return np.asarray(next(it), np.float32) if keep else node
-
+        opt.count = torch.tensor(int(next(head)), dtype=torch.int32, device=dev)
     for i, slot in enumerate(opt.slots):
         part = iter(leaves[n_head + i * len(like): n_head + (i + 1) * len(like)])
-        tree = fill(zeros, part)
-        for key in models:
-            for k, t in STATE_FROM_PARAMS[key](tree[key]).items():
-                name = f"{key}.{k}" if prefixed else k
-                if name in opt.state[slot]:
-                    opt.state[slot][name].copy_(t)
+        _load_named(opt.state[slot], models, _fill(zeros, part, prefixes), prefixed)
+    if opt.scheduled:
+        opt.sched_count = int(leaves[n_head + n_slots])
+    if every:
+        _load_named(opt.acc_grads, models, _fill(zeros, iter(tail), None), prefixed)
     return True
 
 

@@ -1,7 +1,8 @@
 """Batched greedy decoding with optional char-LM shallow fusion.
 
-Port of ``ss_asr_tpu/decode/greedy.py`` (``greedy_decode_early_exit`` and
-``_finalize``).  At each step the emitted id is the argmax of
+Port of ``ss_asr_tpu/decode/greedy.py`` (``greedy_decode``,
+``fused_decode_from_memory``, ``greedy_decode_early_exit`` and
+``_finalize``; the three return the same tokens).  At each step the emitted id is the argmax of
 ``log_softmax(ASR logits) + lm_weight * log_softmax(LM logits)`` (the LM
 term only with an LM), it is fed back, and decoding stops at EOS or after
 ``max_steps``.  The step loop is ``ops.kernels.decode.greedy_decode``: the
@@ -16,7 +17,7 @@ import torch
 
 from ss_asr_tpu_torch.models import charlm as charlm_mod
 from ss_asr_tpu_torch.models import las
-from ss_asr_tpu_torch.ops.kernels.decode import greedy_decode
+from ss_asr_tpu_torch.ops.kernels.decode import greedy_decode as greedy_decode_ids
 from ss_asr_tpu_torch.vocab import EOS_ID, SOS_ID
 
 
@@ -32,7 +33,25 @@ def _finalize(toks: torch.Tensor, max_steps: int) -> Tuple[torch.Tensor, torch.T
     return toks, lengths
 
 
-def greedy_decode_early_exit(
+def fused_decode_from_memory(
+    model: las.LAS,
+    enc_h: torch.Tensor,
+    enc_lens: torch.Tensor,
+    max_steps: int,
+    lm: Optional[charlm_mod.CharLM] = None,
+    lm_weight: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode from listener memory enc_h [B, S, D] -> (tokens [B, max_steps]
+    int32, lengths [B] int32): ``lengths`` counts the characters before
+    EOS; EOS and what follows are SOS (0), which ``Mapper.translate``
+    strips."""
+    comp_h = las.attention_precompute(model.attention, enc_h)
+    toks = greedy_decode_ids(model, enc_h, comp_h, enc_lens, max_steps,
+                             lm if lm_weight != 0.0 else None, lm_weight)
+    return _finalize(toks, max_steps)
+
+
+def greedy_decode(
     model: las.LAS,
     x: torch.Tensor,
     x_lens: torch.Tensor,
@@ -42,6 +61,8 @@ def greedy_decode_early_exit(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """fbanks [B, T, feat] -> (tokens [B, max_steps] int32, lengths [B])."""
     enc_h, enc_lens = las.listener_apply(model.encoder, x, x_lens)
-    comp_h = las.attention_precompute(model.attention, enc_h)
-    toks = greedy_decode(model, enc_h, comp_h, enc_lens, max_steps, lm, lm_weight)
-    return _finalize(toks, max_steps)
+    return fused_decode_from_memory(model, enc_h, enc_lens, max_steps, lm, lm_weight)
+
+
+#: the JAX package's early-exit variant: the same tokens
+greedy_decode_early_exit = greedy_decode

@@ -28,8 +28,8 @@ from ss_asr_tpu_torch.models import discriminator as disc_mod
 from ss_asr_tpu_torch.models import las
 from ss_asr_tpu_torch.models import text_autoencoder as tae_mod
 from ss_asr_tpu_torch.train import losses
-from ss_asr_tpu_torch.train.optim import Optimizer, prefix_mask
-from ss_asr_tpu_torch.train.solver import Solver, check_opt_options, joint_named_parameters
+from ss_asr_tpu_torch.train.optim import prefix_mask
+from ss_asr_tpu_torch.train.solver import Solver, joint_named_parameters, make_optim
 from ss_asr_tpu_torch.utils import checkpoint as ckpt
 
 G_TRAINED = (("asr", "encoder"),)
@@ -71,14 +71,10 @@ class ADVTrainer(Solver):
                                      self.ckppath),
         }
         g, d = self.config["adv"]["G_opt"], self.config["adv"]["D_opt"]
-        check_opt_options("adv.G_opt", g)
-        check_opt_options("adv.D_opt", d)
         named = joint_named_parameters(self.models)
         names = [n for n, _ in named]
-        self.G_optim = Optimizer(named, g["type"], g["learning_rate"],
-                                 mask=prefix_mask(names, G_TRAINED))
-        self.D_optim = Optimizer(named, d["type"], d["learning_rate"],
-                                 mask=prefix_mask(names, D_TRAINED))
+        self.G_optim = make_optim(named, g, mask=prefix_mask(names, G_TRAINED))
+        self.D_optim = make_optim(named, d, mask=prefix_mask(names, D_TRAINED))
         self.g_opt_ckppath = os.path.join(self.ckpdir, "adv_G_opt.npz")
         self.d_opt_ckppath = os.path.join(self.ckpdir, "adv_D_opt.npz")
         # loaded_ckpt: the discriminator's own checkpoint was found

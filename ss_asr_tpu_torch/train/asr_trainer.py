@@ -1,11 +1,16 @@
 """Supervised LAS training.
 
 Port of ``ss_asr_tpu/train/asr_trainer.py`` on one device.  A train step:
-the scheduled-sampling draws (``las.draw_scheduled_sampling`` on the
-solver's generator, on the host, moved to the device), ``asr_forward`` with
-teacher ``y`` at the config's ``tf_rate``, ``masked_ce_per_utt``, the
-backward (on the card: kernels K2 / K3 for the listener, K9 / K10 for the
-speller), then clip + Adadelta under the NaN skip (``train/optim.py``).
+with an ``asr.augment`` section, SpecAugment of the features
+(``ops/augment.py``); ``asr_forward`` with teacher ``y`` at the config's
+``tf_rate``, ``masked_ce_per_utt``, the backward (on the card: kernels K2 /
+K3 for the listener, K9 / K10 for the speller), then clip + Adadelta under
+the NaN skip (``train/optim.py``), with the ``opt`` section's gradient
+accumulation and learning-rate schedule.  The step's random draws come from
+the solver's generator on the host, moved to the device, in this order:
+the augment's four uniforms (``augment.draw_uniforms``), then the
+scheduled-sampling draws (``las.draw_scheduled_sampling``).  The tracker's
+step counts calls (micro-batches), as the JAX trainer's does.
 Validation decodes with greedy feedback for ``L - 1 + 30`` steps (the
 reference's free-run margin) and scores the first ``L - 1``.
 
@@ -29,8 +34,8 @@ from ss_asr_tpu_torch import convert
 from ss_asr_tpu_torch.data.asr_dataset import ASRDataset
 from ss_asr_tpu_torch.models import las
 from ss_asr_tpu_torch.train import losses
-from ss_asr_tpu_torch.train.optim import Optimizer
-from ss_asr_tpu_torch.train.solver import OPTIONS_TODO, Solver, check_opt_options
+from ss_asr_tpu_torch.ops import augment
+from ss_asr_tpu_torch.train.solver import Solver, make_optim
 from ss_asr_tpu_torch.utils import checkpoint as ckpt
 from ss_asr_tpu_torch.utils.metrics import calc_acc, calc_cer, calc_err, draw_att
 from ss_asr_tpu_torch.utils.profiling import StepTimer
@@ -52,10 +57,7 @@ class ASRTrainer(Solver):
 
     def set_model(self):
         c = self.config["asr"]
-        opt = c["opt"]
-        check_opt_options("asr.opt", opt)
-        if c.get("augment"):
-            raise NotImplementedError(f"asr.augment; see {OPTIONS_TODO}")
+        self.aug_cfg = augment.SpecAugmentConfig.from_dict(c.get("augment"))
         self.cfg = las.ASRConfig.from_dict(c["mdl"])
         model = las.LAS(self.cfg)
         tree = self.setup_params(convert.asr_params_from_state(model.state_dict()),
@@ -64,8 +66,8 @@ class ASRTrainer(Solver):
         for name, p in model.named_parameters():
             p.requires_grad_(".bias_hh" not in name)
         self.model = model.to(self.device)
-        self.optim = Optimizer([(n, p) for n, p in self.model.named_parameters() if p.requires_grad],
-                               opt["type"], opt["learning_rate"])
+        self.optim = make_optim([(n, p) for n, p in self.model.named_parameters()
+                                 if p.requires_grad], c["opt"])
         if self.loaded_ckpt and ckpt.exists(self.opt_ckppath):
             self.verbose(f"Restoring optimizer state from {self.opt_ckppath}")
             if not convert.load_asr_opt_state_leaves(self.optim, self.model,
@@ -91,6 +93,8 @@ class ASRTrainer(Solver):
         feat], x_lens [B], targets y [B, L + 1] (SOS first) -> (loss,
         logits), both detached."""
         L = y.shape[1] - 1
+        if self.aug_cfg is not None:  # the training features only; valid() sees clean ones
+            x = augment.spec_augment(x, x_lens, self.aug_cfg, generator=self.generator)
         tf_draws, gumbel = las.draw_scheduled_sampling(L, y.shape[0], self.cfg.tf_rate, self.cfg,
                                                        self.generator, device=self.device)
         self.model.zero_grad(set_to_none=True)

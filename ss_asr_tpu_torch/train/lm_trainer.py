@@ -25,8 +25,7 @@ from ss_asr_tpu_torch import convert
 from ss_asr_tpu_torch.data.lm_dataset import LMDataset
 from ss_asr_tpu_torch.models import charlm, las
 from ss_asr_tpu_torch.train import losses
-from ss_asr_tpu_torch.train.optim import Optimizer
-from ss_asr_tpu_torch.train.solver import Solver, check_opt_options, joint_named_parameters
+from ss_asr_tpu_torch.train.solver import Solver, joint_named_parameters, make_optim
 from ss_asr_tpu_torch.utils import checkpoint as ckpt
 from ss_asr_tpu_torch.vocab import SOS_TKN, Mapper
 
@@ -44,7 +43,6 @@ class CHARLMTrainer(Solver):
 
     def set_model(self):
         c = self.config["char_lm"]
-        check_opt_options("char_lm.opt", c["opt"])
         self.cfg = charlm.CharLMConfig.from_dict({**c["mdl"], "tf_rate": self.tf_rate})
         lm = charlm.CharLM(self.cfg)
         tree = self.setup_params(convert.charlm_params_from_state(lm.state_dict()),
@@ -53,8 +51,7 @@ class CHARLMTrainer(Solver):
         lm.load_state_dict(convert.charlm_state_from_params(tree))
         self.lm = lm.to(self.device)
         self.models = {"char_lm": self.lm}
-        self.optim = Optimizer(joint_named_parameters(self.models), c["opt"]["type"],
-                               c["opt"]["learning_rate"])
+        self.optim = make_optim(joint_named_parameters(self.models), c["opt"])
         self.restore_opt(self.optim, self.opt_ckppath, None)
 
     def params_tree(self):

@@ -28,17 +28,34 @@ that each step equals optax's:
 * **Update scales**: after the inner update, ``(names, factor)`` multiplies
   the update of those names (``sae.listener_lr_scale``).
 
+* **Schedules** (``make_schedule``): a linear warm-up from 0 over
+  ``warmup_steps`` updates, then the peak rate, or a cosine decay over
+  ``decay_steps`` more updates (the horizon AFTER the warm-up) down to
+  ``end_scale`` times the peak; optax's ``linear_schedule`` /
+  ``warmup_cosine_decay_schedule``, in float32 and in optax's order of
+  operations.  The rate of an update is the schedule at the count of the
+  updates before it (optax's ``scale_by_schedule`` count, which only a
+  schedule has).
+* **Gradient accumulation** (``accum_steps`` k > 1; optax's ``MultiSteps``
+  inside ``apply_if_finite``): each accepted call folds its gradients, every
+  parameter's (the frozen ones' too), into a running mean, ``acc + (g -
+  acc) / (n + 1)`` (Welford's, not a sum divided by k); the k-th accepted
+  call runs the clip and the inner update (and steps the schedule) once on
+  that mean and resets it.  A call with a non-finite gradient is skipped
+  whole: it moves no mini-step and is absent from the mean.
+
 The parameters are updated in place.  The accumulators are kept per
 parameter name; ``convert`` writes and reads them in the JAX package's npz
 layout.  ``prefix_mask`` / ``path_mask`` select names by their dotted path,
-as the JAX package's select leaves by key path.  Schedules and gradient
-accumulation are ROADMAP item 8.
+as the JAX package's select leaves by key path.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional, Sequence, Set, Tuple
+import math
+from typing import Callable, Dict, Iterable, Optional, Sequence, Set, Tuple, Union
 
+import numpy as np
 import torch
 
 SLOTS = {"adadelta": ("e_g", "e_x"), "adam": ("mu", "nu"), "sgd": ()}
@@ -57,6 +74,44 @@ def _safe_increment(n: torch.Tensor) -> torch.Tensor:
     return torch.where(n < _INT32_MAX, n + 1, n)
 
 
+def _inc(n: int) -> int:
+    """``_safe_increment`` of a count kept on the host."""
+    return n + 1 if n < _INT32_MAX else n
+
+
+def make_schedule(learning_rate: float, warmup_steps: int = 0, decay_steps: int = 0,
+                  end_scale: float = 0.0, dtype=np.float32
+                  ) -> Union[float, Callable[[int], float]]:
+    """The learning rate, or the schedule ``count -> rate`` (see the module
+    docstring), as ``ss_asr_tpu/train/optim.py::make_schedule`` builds it:
+    optax's ``linear_schedule`` (warm-up only) or
+    ``warmup_cosine_decay_schedule(decay_steps=warmup + decay)``, each
+    operation rounded to ``dtype`` as optax's float32 is (float64 gives the
+    same formula unrounded)."""
+    if not warmup_steps and not decay_steps:
+        return learning_rate
+    f = dtype
+    W, D, lr = int(warmup_steps), int(decay_steps), float(learning_rate)
+    init = 0.0 if W else lr
+
+    def linear(count: int):  # polynomial_schedule(power=1) from init to lr over W
+        if W <= 0:
+            return f(init)
+        frac = f(1) - f(f(min(max(count, 0), W)) / f(W))
+        return f(f(init - lr) * frac) + f(lr)
+
+    if not D:
+        return lambda count: float(linear(count))
+    alpha = 0.0 if lr == 0.0 else (end_scale * lr) / lr
+
+    def cosine(count: int):  # cosine_decay_schedule(lr, D, alpha)
+        c = f(min(count, D))
+        decay = f(0.5) * (f(1) + f(np.cos(np.float64(f(f(math.pi) * c) / f(D)))))
+        return f(lr) * (f(f(1.0 - alpha) * decay) + f(alpha))
+
+    return lambda count: float(linear(count) if count < W else cosine(count - W))
+
+
 def path_mask(names: Iterable[str], pred: Callable[[Tuple[str, ...]], bool]) -> Set[str]:
     """The names whose dotted path satisfies ``pred`` (a tuple of its parts)."""
     return {n for n in names if pred(tuple(n.split(".")))}
@@ -70,11 +125,15 @@ def prefix_mask(names: Iterable[str], prefixes: Sequence[Tuple[str, ...]]) -> Se
 class Optimizer:
     """clip -> Adadelta / Adam / SGD under the NaN skip, over named
     parameters; ``mask`` (names) restricts the update to a subset,
-    ``update_scales`` [(names, factor)] damps some of its updates."""
+    ``update_scales`` [(names, factor)] damps some of its updates,
+    ``accum_steps`` averages that many accepted calls into one update, and
+    ``warmup_steps`` / ``decay_steps`` / ``end_scale`` schedule its rate."""
 
     def __init__(self, params: Iterable[Tuple[str, torch.Tensor]], opt_type: str,
                  learning_rate: float, mask: Optional[Iterable[str]] = None,
-                 update_scales: Optional[Sequence[Tuple[Iterable[str], float]]] = None):
+                 update_scales: Optional[Sequence[Tuple[Iterable[str], float]]] = None,
+                 accum_steps: int = 1, warmup_steps: int = 0, decay_steps: int = 0,
+                 end_scale: float = 0.0):
         self.opt_type = opt_type.lower()
         if self.opt_type not in SLOTS:
             raise ValueError(f"Unknown optimizer type: {opt_type}")
@@ -83,21 +142,34 @@ class Optimizer:
         if not self.mask <= set(self.params):
             raise ValueError(f"mask names {sorted(self.mask - set(self.params))} are no parameters")
         self.scales = [(set(names), float(f)) for names, f in update_scales or ()]
-        self.lr = float(learning_rate)
+        self.schedule = make_schedule(float(learning_rate), warmup_steps, decay_steps, end_scale)
+        self.scheduled = callable(self.schedule)
+        self.accum_steps = max(int(accum_steps or 1), 1)
         dev = next(iter(self.params.values())).device
         self.notfinite_count = torch.zeros((), dtype=torch.int32, device=dev)
         self.last_finite = torch.ones((), dtype=torch.bool, device=dev)
         self.total_notfinite = torch.zeros((), dtype=torch.int32, device=dev)
         self.count = torch.zeros((), dtype=torch.int32, device=dev)  # Adam's step count
+        # host counts: the schedule's updates, MultiSteps' mini_step and gradient_step
+        self.sched_count = self.mini_step = self.gradient_step = 0
         self.slots = SLOTS[self.opt_type]
         self.state: Dict[str, Dict[str, torch.Tensor]] = {
             s: {k: torch.zeros_like(p) for k, p in self.params.items() if k in self.mask}
             for s in self.slots}
+        # the running mean of the accepted calls' gradients, every parameter's
+        self.acc_grads: Dict[str, torch.Tensor] = (
+            {k: torch.zeros_like(p) for k, p in self.params.items()}
+            if self.accum_steps > 1 else {})
+
+    def rate(self) -> float:
+        """The learning rate of the next update."""
+        return self.schedule(self.sched_count) if self.scheduled else self.schedule
 
     @torch.no_grad()
     def step(self) -> bool:
-        """One update from the parameters' ``.grad`` (None counts as zero).
-        Returns whether the step was taken."""
+        """One call with the parameters' ``.grad`` (None counts as zero):
+        an update, or with ``accum_steps`` k one of k accumulated calls.
+        Returns whether the call was accepted (its gradients finite)."""
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in self.params.items()}
         finite = torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
@@ -107,9 +179,25 @@ class Optimizer:
                                            _safe_increment(self.total_notfinite))
         self.last_finite = finite
         take = bool(finite) or int(self.notfinite_count) > MAX_CONSECUTIVE_ERRORS
-        if take:  # the frozen parameters' gradients go no further than the check
+        if not take:
+            return False
+        if self.accum_steps == 1:  # the frozen parameters' gradients go no further than the check
             self._update({k: g for k, g in grads.items() if k in self.mask})
-        return take
+            return True
+        # MultiSteps' mean; a divisor on the device divides exactly (a host scalar's
+        # reciprocal would be multiplied on the card)
+        some = next(iter(self.acc_grads.values()))
+        n = torch.full((), self.mini_step + 1, dtype=some.dtype, device=some.device)
+        for k, g in grads.items():
+            acc = self.acc_grads[k]
+            acc.add_((g - acc) / n)
+        if self.mini_step == self.accum_steps - 1:
+            self._update({k: g for k, g in self.acc_grads.items() if k in self.mask})
+            for acc in self.acc_grads.values():
+                acc.zero_()
+            self.gradient_step = _inc(self.gradient_step)
+        self.mini_step = _inc(self.mini_step) % self.accum_steps
+        return True
 
     def _update(self, grads: Dict[str, torch.Tensor]) -> None:
         g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
@@ -119,6 +207,9 @@ class Optimizer:
             self.count = _safe_increment(self.count)
             c1 = 1 - torch.tensor(B1, dtype=torch.float32) ** self.count.float()
             c2 = 1 - torch.tensor(B2, dtype=torch.float32) ** self.count.float()
+        lr = self.rate()
+        if self.scheduled:
+            self.sched_count = _inc(self.sched_count)
         for k, g in grads.items():
             if self.opt_type == "adadelta":
                 e_g, e_x = self.state["e_g"][k], self.state["e_x"][k]
@@ -132,7 +223,7 @@ class Optimizer:
                 d = (mu / c1.to(mu.device)) / (torch.sqrt(nu / c2.to(nu.device)) + EPS)
             else:
                 d = g
-            u = d * -self.lr
+            u = d * -lr
             for names, factor in self.scales:
                 if k in names:
                     u = u * factor

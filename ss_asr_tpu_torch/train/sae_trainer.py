@@ -24,8 +24,8 @@ from ss_asr_tpu_torch.data.asr_dataset import ASRDataset
 from ss_asr_tpu_torch.models import las
 from ss_asr_tpu_torch.models import speech_autoencoder as sae_mod
 from ss_asr_tpu_torch.train import losses
-from ss_asr_tpu_torch.train.optim import Optimizer, prefix_mask
-from ss_asr_tpu_torch.train.solver import Solver, check_opt_options, joint_named_parameters
+from ss_asr_tpu_torch.train.optim import prefix_mask
+from ss_asr_tpu_torch.train.solver import Solver, joint_named_parameters, make_optim
 from ss_asr_tpu_torch.utils import checkpoint as ckpt
 
 TRAINED = (("sae",), ("asr", "encoder"))
@@ -68,13 +68,11 @@ class SAETrainer(Solver):
         self.models = {"asr": asr, "sae": sae.to(self.device)}
 
         c = self.config["sae"]["opt"]
-        check_opt_options("sae.opt", c)
         named = joint_named_parameters(self.models)
         names = [n for n, _ in named]
         lr_scale = float(self.config["sae"].get("listener_lr_scale", 1.0))
         scales = [(prefix_mask(names, (("asr", "encoder"),)), lr_scale)] if lr_scale != 1.0 else None
-        self.optim = Optimizer(named, c["type"], c["learning_rate"],
-                               mask=prefix_mask(names, TRAINED), update_scales=scales)
+        self.optim = make_optim(named, c, mask=prefix_mask(names, TRAINED), update_scales=scales)
         self.restore_opt(self.optim, self.opt_ckppath, TRAINED)
 
     def _placed(self, b):

@@ -23,20 +23,25 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ss_asr_tpu_torch.train.optim import Optimizer
 from ss_asr_tpu_torch.utils import checkpoint as ckpt
 from ss_asr_tpu_torch.utils.logging import MetricLogger
 from ss_asr_tpu_torch.utils.tracker import Tracker
 
 MULTI_DEVICE_TODO = "ROADMAP.md port item 10 (data-parallel serving and training)"
-OPTIONS_TODO = ("ROADMAP.md port item 8 (the trainers' options: gradient accumulation, "
-                "learning-rate schedules, SpecAugment)")
 
 
-def check_opt_options(section: str, opt: dict) -> None:
-    """Raise for the optimizer options the port does not have yet."""
-    for key, off in (("accum_steps", 1), ("warmup_steps", 0), ("decay_steps", 0)):
-        if opt.get(key, off) not in (off, None):
-            raise NotImplementedError(f"{section}.{key}: {opt[key]}; see {OPTIONS_TODO}")
+def make_optim(params, opt: dict, **kw) -> Optimizer:
+    """The ``Optimizer`` an ``opt`` section asks for: its ``type`` and
+    ``learning_rate``, and ``accum_steps``, ``warmup_steps``,
+    ``decay_steps`` and ``end_scale`` with the JAX trainers' defaults
+    (``ss_asr_tpu/train/asr_trainer.py`` passes them to ``make_optimizer``);
+    ``kw``: ``mask``, ``update_scales``."""
+    return Optimizer(params, opt["type"], opt["learning_rate"],
+                     accum_steps=opt.get("accum_steps", 1),
+                     warmup_steps=opt.get("warmup_steps", 0),
+                     decay_steps=opt.get("decay_steps", 0),
+                     end_scale=opt.get("end_scale", 0.0), **kw)
 
 
 def joint_named_parameters(models: Dict[str, torch.nn.Module]):

@@ -25,8 +25,8 @@ from ss_asr_tpu_torch.data.asr_dataset import ASRDataset
 from ss_asr_tpu_torch.models import las
 from ss_asr_tpu_torch.models import text_autoencoder as tae_mod
 from ss_asr_tpu_torch.train import losses
-from ss_asr_tpu_torch.train.optim import Optimizer, prefix_mask
-from ss_asr_tpu_torch.train.solver import Solver, check_opt_options, joint_named_parameters
+from ss_asr_tpu_torch.train.optim import prefix_mask
+from ss_asr_tpu_torch.train.solver import Solver, joint_named_parameters, make_optim
 from ss_asr_tpu_torch.utils import checkpoint as ckpt
 
 #: ASR subtrees the TAE trainer updates
@@ -60,10 +60,8 @@ class TAETrainer(Solver):
                                self.ckppath)
         self.models = {"asr": asr, "tae": tae}
         c = self.config["tae"]["opt"]
-        check_opt_options("tae.opt", c)
         named = joint_named_parameters(self.models)
-        self.optim = Optimizer(named, c["type"], c["learning_rate"],
-                               mask=prefix_mask([n for n, _ in named], TRAINED))
+        self.optim = make_optim(named, c, mask=prefix_mask([n for n, _ in named], TRAINED))
         self.restore_opt(self.optim, self.opt_ckppath, TRAINED)
 
     def _placed(self, b):

@@ -1,5 +1,4 @@
-"""Copied from ``ss_asr_tpu/utils/tfevents.py`` (the writer; its readers are not
-ported).
+"""Copied from ``ss_asr_tpu/utils/tfevents.py``.
 
 Native TensorBoard event-file writer — no tensorboardX/tensorflow needed.
 
@@ -23,7 +22,7 @@ import os
 import socket
 import struct
 import time
-from typing import List
+from typing import Iterator, List, Tuple
 
 # ---------------------------------------------------------------------------
 # CRC32C (Castagnoli), table-driven — TFRecord's integrity checksum
@@ -136,3 +135,80 @@ class EventWriter:
 
     def close(self) -> None:
         self._f.close()
+
+
+def read_records(path: str, verify: bool = True) -> Iterator[bytes]:
+    """TFRecord stream reader (for tests / inspection)."""
+    with open(path, "rb") as f:
+        while True:
+            header = f.read(8)
+            if len(header) < 8:
+                return
+            (length,) = struct.unpack("<Q", header)
+            (hcrc,) = struct.unpack("<I", f.read(4))
+            data = f.read(length)
+            (dcrc,) = struct.unpack("<I", f.read(4))
+            if verify:
+                assert hcrc == _masked_crc(header), "header CRC mismatch"
+                assert dcrc == _masked_crc(data), "data CRC mismatch"
+            yield data
+
+
+def _read_fields(data: bytes) -> Iterator[Tuple[int, int, bytes | int]]:
+    """Decode top-level (field_num, wire_type, value) triples."""
+    i = 0
+
+    def varint():
+        nonlocal i
+        n = shift = 0
+        while True:
+            b = data[i]
+            i += 1
+            n |= (b & 0x7F) << shift
+            if not b & 0x80:
+                return n
+            shift += 7
+
+    while i < len(data):
+        key = varint()
+        num, wt = key >> 3, key & 7
+        if wt == 0:
+            yield num, wt, varint()
+        elif wt == 1:
+            yield num, wt, data[i : i + 8]
+            i += 8
+        elif wt == 2:
+            ln = varint()
+            yield num, wt, data[i : i + ln]
+            i += ln
+        elif wt == 5:
+            yield num, wt, data[i : i + 4]
+            i += 4
+        else:  # pragma: no cover
+            raise ValueError(f"unsupported wire type {wt}")
+
+
+def read_scalars(path: str) -> List[Tuple[str, float, int]]:
+    """Parse (tag, value, step) scalars back out of a tfevents file."""
+    out: List[Tuple[str, float, int]] = []
+    for rec in read_records(path):
+        step, summary = 0, None
+        for num, wt, val in _read_fields(rec):
+            if num == 2 and wt == 0:
+                step = int(val)
+            elif num == 5 and wt == 2:
+                summary = val
+        if summary is None:
+            continue
+        for num, wt, val in _read_fields(summary):
+            if num != 1 or wt != 2:
+                continue
+            tag, simple = None, None
+            for n2, w2, v2 in _read_fields(val):
+                if n2 == 1 and w2 == 2:
+                    tag = v2.decode()
+                elif n2 == 2 and w2 == 5:
+                    (simple,) = struct.unpack("<f", v2)
+            if tag is not None and simple is not None:
+                out.append((tag, simple, step))
+    return out

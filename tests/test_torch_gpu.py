@@ -916,6 +916,50 @@ def test_asr_trainer_step_on_the_card_matches_the_cpu(cuda, tmp_path):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
 
 
+def test_accumulated_asr_update_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """``accum_steps: 2`` with a warm-up / cosine schedule and SpecAugment:
+    three calls (one update, then half of the next) on the card and on the
+    CPU, each trainer drawing the same augment and scheduled-sampling
+    uniforms from its generator: parameters and every optimizer leaf, the
+    running mean included, within 1e-5."""
+    from ss_asr_tpu_torch.train.asr_trainer import ASRTrainer
+    from ss_asr_tpu_torch.train.solver import make_paras
+    from ss_asr_tpu_torch.utils.checkpoint import save_pytree
+
+    mdl = dict(encoder_state_size=16, decoder_state_size=16, mlp_out_size=8, feature_dim=5,
+               tf_rate=0.5)
+    config = {"asr": {"opt": {"type": "Adadelta", "learning_rate": 1.0, "accum_steps": 2,
+                              "warmup_steps": 1, "decay_steps": 3, "end_scale": 0.1},
+                      "augment": {"n_freq_masks": 1, "freq_mask_width": 2, "n_time_masks": 1,
+                                  "time_mask_width": 6},
+                      "mdl": mdl}}
+    tree = convert.init_asr_numpy(2, las.ASRConfig(**mdl))
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((4, 40, 5)).astype(np.float32))
+    x_lens = torch.tensor([40, 31, 22, 9], dtype=torch.int32)
+    y = torch.from_numpy(rng.integers(2, VOCAB_SIZE, (4, 9))).long()
+    y[:, 0] = 0
+    out = []
+    for dev in ("cpu", "cuda"):
+        save_pytree(str(tmp_path / "result" / dev / "asr.npz"), tree)
+        t = ASRTrainer(config, make_paras(name=dev, logdir=str(tmp_path / "runs"),
+                                          ckpdir=str(tmp_path / "result"), verbose=False),
+                       device=dev)
+        t.set_model()
+        for sl in (slice(0, 2), slice(2, 4), slice(0, 2)):
+            t.step(x[sl].to(dev), x_lens[sl].to(dev), y[sl].to(dev))
+        assert (t.optim.gradient_step, t.optim.mini_step, t.optim.sched_count) == (1, 1, 1)
+        out.append((convert.tree_leaves(t.params_tree()),
+                    convert.asr_opt_state_leaves(t.optim, t.model)))
+    for a, b in zip(out[1][0], out[0][0]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+    assert len(out[1][1]) == len(out[0][1]) == 5 + 2 * 36 + 1 + 36
+    for a, b in zip(out[1][1], out[0][1]):
+        assert a.dtype == b.dtype
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+    assert float(np.abs(out[1][1][-1]).max()) > 0  # the running mean of the third call
+
+
 AUX_ASR = dict(encoder_state_size=16, decoder_state_size=16, mlp_out_size=8, feature_dim=8,
                tf_rate=0.5)
 AUX_CONFIG = {

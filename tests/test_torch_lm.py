@@ -273,10 +273,11 @@ def test_trainer_warns_about_zero_batches_and_refuses_unported_options(lm_config
     t.set_model()
     t.exec()
     assert "WARNING: 0 train batches" in capsys.readouterr().out and t.tr.step == 0
-    config["char_lm"]["opt"]["warmup_steps"] = 5
+    config["char_lm"]["opt"]["warmup_steps"] = 5  # every option of the opt section is ported
     t = CHARLMTrainer(config, _paras(make_paras, tmp_path, "opt"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md port item 8"):
-        t.set_model()
+    t.load_data()
+    t.set_model()
+    assert t.optim.scheduled and t.optim.rate() == 0.0
 
 
 # --------------------------------------------------------------------------

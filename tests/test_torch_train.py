@@ -268,15 +268,6 @@ def test_cli_train_refuses_missing_cuda_and_dispatches_every_trainer(monkeypatch
         assert calls[1:] == steps
 
 
-@pytest.mark.parametrize("opt", [{"accum_steps": 2}, {"warmup_steps": 10}, {"decay_steps": 5}])
-def test_unported_options_raise(corpus, tmp_path, opt):
-    config = copy.deepcopy(corpus)
-    config["asr"]["opt"].update(opt)
-    t = ASRTrainer(config, _paras(make_paras, tmp_path, "opt"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md port item 8"):
-        t.set_model()
-
-
 def test_checkpoint_of_another_size_is_refused(corpus, tmp_path):
     _start(tmp_path, "size", convert.init_asr_numpy(0, las.ASRConfig(**{**MDL, "mlp_out_size": 4})))
     t = ASRTrainer(corpus, _paras(make_paras, tmp_path, "size"), device="cpu")
