@@ -184,7 +184,29 @@ Phases, in order; any failure exits non-zero:
    and LM and the import back, every array bit-equal, and the imported
    pair behind the server under the default decode: its transcripts equal
    the original pair's.
-12. One JSON line of kernels (launches on the paths above, error, kernel /
+12. Data parallelism and mesh serving, on a random stream of their own:
+   (a) the flagship ASR step (global batch 32 = 2 x 16, T = 512, L = 48, tf
+   0.9, the frontend from the waveforms) over two ranks in processes of
+   their own (``spawn``) sharing the card under gloo, 3 steps: the ranks'
+   parameters bit-equal after every step, each rank's launches counted
+   (K11, K2, K3, K9, K10 on their cluster routes), the losses and updates
+   held against one process on the joined batch by the anchored rule of
+   phase 8 (a float64 run of the plain versions; the ranks' error at most
+   4x the CPU float32 run's, or below 1e-5), and the step's wall (CUDA
+   events) beside that process's; (b) ``cli.train ASRTrainer`` through
+   ``python -m torch.distributed.run --nproc-per-node 2`` with ``parallel:
+   {distributed: true, n_data: auto}`` on 31 tone utterances (the step cap
+   trims one rank), one ckpdir saved to every step by rank 0: both ranks
+   log the same losses at the same steps, and a second invocation resumes
+   on both at the saved step; (c) ``Transcriber(mesh=make_mesh(devices=
+   [card, card]))`` on the phase-6 signals, greedy, greedy + LM and the
+   default decode: each shard's kernels counted, the transcripts equal the
+   single device's (or, where they differ, divergent only at a near tie of
+   the single device's path, at most 2 rows), a batch's wall on each side
+   (median of 5), then the HTTP server over the mesh Transcriber (default
+   decode) with ``?detail=1&nbest=3`` and one ``/reload``.  A failed
+   collective or a rank still running after 180 s fails the phase.
+13. One JSON line of kernels (launches on the paths above, error, kernel /
    plain / library times, bound), the nvidia-smi line, and last the
    contract line ``{"ok": true, "device": {...}}``.
 """
@@ -3098,6 +3120,497 @@ def check_options(torch, rng, config, asr_tree, asr_path, lm_path, sigs, tmp):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 12: data parallelism and mesh serving
+
+DP_RANKS = 2  # two ranks share the one card under gloo (NCCL refuses two ranks on a card)
+DP_STEPS = 3  # DP steps held against one process and float64, the ranks bit-equal after each
+DP_TIMED = 5  # further steps timed on each side (the median is reported)
+DP_RANK_TIMEOUT = 180  # s: a rank still running then is killed and the phase fails
+DP_CLI_UTTS = 31  # odd: strided shards of 16 and 15 rows pack 2 and 1 batches of DP_CLI_B
+DP_CLI_B = 8
+DP_CLI_EPOCHS = 3
+MESH_TIMED = 5  # direct batches timed on each side of the mesh comparison
+
+
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1 (for a process group's rendezvous)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_entry(fn, rank, world, port, out_dir, device, args):
+    """One rank started by ``run_ranks``, in a process of its own:
+    torchrun's environment, one torch thread, the process group of
+    ``parallel.mesh.init_process_group(device)``; runs ``fn(rank, world,
+    this rank's device, *args)`` and pickles what it returns to
+    ``<out_dir>/rank<r>.pkl`` (or its traceback to ``rank<r>.err``)."""
+    import pickle
+    import traceback
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    try:
+        from ss_asr_tpu_torch.parallel import mesh as pmesh
+
+        out = fn(rank, world, pmesh.init_process_group(device), *args)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(fn, world, out_dir, *args, device=None, timeout=DP_RANK_TIMEOUT) -> list:
+    """``fn(rank, world, device, *args)`` on ``world`` ranks (``rank_entry``)
+    started by ``spawn`` on ``device`` (default DEVICE: every rank on the
+    card, under gloo), all joined within ``timeout`` s; a rank still running
+    then is killed, and a rank that failed or hung raises -> each rank's
+    result, in rank order."""
+    import multiprocessing as mp
+    import pickle
+
+    out_dir = str(out_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=rank_entry, args=(fn, r, world, port, out_dir, device or DEVICE,
+                                                   args), daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+    errs = []
+    for r in range(world):
+        path = os.path.join(out_dir, f"rank{r}.err")
+        if os.path.exists(path):
+            with open(path) as f:
+                errs.append(f"rank {r}: {f.read()[-3000:]}")
+    if hung or any(p.exitcode != 0 for p in procs):
+        raise RuntimeError(f"ranks {hung} still running after {timeout} s (killed); exit codes "
+                           f"{[p.exitcode for p in procs]}\n" + "\n".join(errs))
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def dp_rank_step(rank, world, dev, config, tmp, wave, n, y):
+    """One rank of phase 12 (a): an ASRTrainer on this rank's rows of the
+    global batch (the frontend on the card from the waveforms, then the
+    step), DP_STEPS steps, a digest of the parameters after each and the
+    launches of those steps; then DP_TIMED timed steps."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from ss_asr_tpu_torch.ops.frontend import log_mel_fbank_batch
+    from ss_asr_tpu_torch.train.asr_trainer import ASRTrainer
+    from ss_asr_tpu_torch.train.solver import make_paras
+
+    t = ASRTrainer(config, make_paras(name="dp_ranks", logdir=os.path.join(tmp, "runs"),
+                                      ckpdir=os.path.join(tmp, "result"), seed=SEED,
+                                      verbose=False), device=str(dev))
+    t.set_model()
+    b = wave.shape[0] // world
+    rows = slice(rank * b, (rank + 1) * b)
+    w, nn, yy = (torch.from_numpy(a[rows]).to(dev) for a in (wave, n, y))
+
+    def step():
+        with torch.no_grad():
+            fb, fl = log_mel_fbank_batch(w, nn, SR)
+        return t.step(fb, fl, yy)[0]
+
+    before = {k: p.detach().cpu().double() for k, p in t.optim.params.items()}
+    zero_launches()
+    losses, digests = [], []
+    for _ in range(DP_STEPS):
+        losses.append(float(step()))
+        digests.append(hashlib.sha256(b"".join(
+            p.detach().cpu().numpy().tobytes() for p in t.optim.params.values())).hexdigest())
+    launches = read_launches()
+    update = ({k: (p.detach().cpu().double() - before[k]).numpy()
+               for k, p in t.optim.params.items()} if rank == 0 else None)
+    times = []
+    for _ in range(DP_TIMED):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return {"losses": losses, "digests": digests, "launches": launches, "update": update,
+            "times": times, "device": str(dev), "backend": dist.get_backend(),
+            "host_shard": t.host_shard, "mesh": str(t.mesh)}
+
+
+def check_dp_step(torch, rng, config, asr_tree, tmp):
+    """Phase 12 (a): the flagship ASR step over DP_RANKS ranks on the one
+    card under gloo (global batch TRAIN_B = 2 x 16, tf 0.9), DP_STEPS steps:
+    the ranks' parameters bit-equal after every step; the losses and the
+    parameters' updates held against one process on the joined batch, by
+    the anchored rule against a float64 run of the plain versions (the
+    ranks' error at most ANCHOR_RATIO times the CPU float32 run's, or below
+    STEP_FLOOR); each rank's launches (K11, K2, K3, K9, K10 on their
+    cluster routes); then the step's wall beside the single process's.
+    Returns {path: launches}."""
+    import numpy as np
+
+    from ss_asr_tpu_torch.ops.frontend import log_mel_fbank_batch
+    from ss_asr_tpu_torch.utils.checkpoint import save_pytree
+
+    wave, n, y = train_batch(torch, rng)
+    c = copy.deepcopy(config)
+    c["asr"]["mdl"]["tf_rate"] = 0.9
+    save_pytree(os.path.join(tmp, "result", "dp_ranks", "asr.npz"), asr_tree)
+    t0 = time.perf_counter()
+    ranks = run_ranks(dp_rank_step, DP_RANKS, os.path.join(tmp, "dp_step_ranks"),
+                      {**c, "parallel": {"n_data": "auto"}}, tmp,
+                      *(a.cpu().numpy() for a in (wave, n, y)))
+    secs = time.perf_counter() - t0
+    r0, r1 = ranks
+    print(f"DP step: {DP_RANKS} ranks on {r0['device']} / {r1['device']} ({r0['backend']}), "
+          f"shards {r0['host_shard']} / {r1['host_shard']}, mesh {r0['mesh']}; ranks done in "
+          f"{secs:.1f} s (start-up included)", flush=True)
+    for s, (a, b) in enumerate(zip(r0["digests"], r1["digests"])):
+        if a != b:
+            fail(f"DP step: the ranks' parameters differ after step {s + 1}")
+    if r0["losses"] != r1["losses"]:
+        fail(f"DP step: the ranks' losses differ: {r0['losses']} / {r1['losses']}")
+    launches = {k: r0["launches"][k] + r1["launches"][k] for k in r0["launches"]}
+    for name in ("fbank", "lstm_fwd", "lstm_bwd", "spell_fwd", "spell_bwd"):
+        if r0["launches"][name] < DP_STEPS or r1["launches"][name] < DP_STEPS:
+            fail(f"DP step: launched {name} {r0['launches'][name]} / {r1['launches'][name]} "
+                 f"times in {DP_STEPS} steps")
+    require_cluster_route("DP step", launches)
+
+    # one process on the joined batch: on the card, on the CPU and in float64
+    with torch.no_grad():
+        x, x_lens = log_mel_fbank_batch(wave, n, SR)
+    ts = [trainer(c, tmp, f"dp_single_{tag}", asr_tree, dev)
+          for tag, dev in (("card", DEVICE), ("cpu", "cpu"), ("f64", "cpu"))]
+    ts[2].model.double()
+    float64_optim(ts[2].optim)
+    before = snapshot(torch, ts, lambda t: [t.optim])
+
+    def card_step():
+        with torch.no_grad():
+            fb, fl = log_mel_fbank_batch(wave, n, SR)
+        return ts[0].step(fb, fl, y)[0]
+
+    losses = [[float(card_step()) for _ in range(DP_STEPS)]]
+    for t in ts[1:]:
+        dt = next(t.model.parameters()).dtype
+        losses.append([float(t.step(x.cpu().to(dt), x_lens.cpu(), y.cpu())[0])
+                       for _ in range(DP_STEPS)])
+    worst, bad = (0.0, 0.0, 0.0, ""), []
+    rows = [(f"loss {s + 1}", torch.tensor(r0["losses"][s]), torch.tensor(losses[0][s]),
+             torch.tensor(losses[1][s]), torch.tensor(losses[2][s])) for s in range(DP_STEPS)]
+    rows += [(name, torch.from_numpy(r0["update"][name]),
+              ts[0].optim.params[name].detach().cpu().double() - before[0][name],
+              ts[1].optim.params[name].detach().cpu().double() - before[1][name],
+              ts[2].optim.params[name].detach().cpu().double() - before[2][name])
+             for name in sorted(ts[0].optim.mask)]
+    for name, dp, card, cpu, ref in rows:
+        k, s1, cc = (rel_l2(torch, v.double(), ref.double()) for v in (dp, card, cpu))
+        worst = max(worst, (k, s1, cc, name))
+        if not k <= max(ANCHOR_RATIO * cc, STEP_FLOOR):
+            bad.append(f"{name} (DP {k:.3e}, one process on the card {s1:.3e}, CPU {cc:.3e})")
+    print(f"DP step B={TRAIN_B} = {DP_RANKS} x {TRAIN_B // DP_RANKS} T={x.shape[1]} L={TRAIN_L} "
+          f"tf 0.9, {DP_STEPS} steps: losses DP {[f'{v:.6f}' for v in r0['losses']]}, one "
+          f"process {[f'{v:.6f}' for v in losses[0]]}, float64 "
+          f"{[f'{v:.6f}' for v in losses[2]]}; the losses and the {len(rows) - DP_STEPS} "
+          f"updates against float64: worst DP rel L2 {worst[0]:.3e} (one process on the card "
+          f"{worst[1]:.3e}, CPU float32 {worst[2]:.3e}, {worst[3]}); ranks bit-equal after "
+          f"every step", flush=True)
+    if bad:
+        fail(f"DP step: error against float64 above {ANCHOR_RATIO} x the CPU float32's and "
+             f"{STEP_FLOOR}: {bad}")
+    times = []
+    for _ in range(DP_TIMED):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        card_step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    dp_ms, one_ms = statistics.median(r0["times"]), statistics.median(times)
+    print(f"DP step wall (CUDA events, median of {DP_TIMED}): {DP_RANKS} ranks sharing the card "
+          f"{dp_ms:.3f} ms (rank 1 {statistics.median(r1['times']):.3f}; min "
+          f"{min(r0['times']):.3f}, max {max(r0['times']):.3f}) against one process on the "
+          f"joined batch {one_ms:.3f} ms (min {min(times):.3f}, max {max(times):.3f}): the gloo "
+          f"all-reduce and two processes on one card, not a data-parallel gain; launches per "
+          f"rank and step {({k: v // DP_STEPS for k, v in r0['launches'].items() if v})}",
+          flush=True)
+    return {"dp step": launches}
+
+
+def check_dp_cli(config, split, tmp):
+    """Phase 12 (b): ``cli.train ASRTrainer`` through ``python -m
+    torch.distributed.run --nproc-per-node DP_RANKS`` with ``parallel:
+    {distributed: true, n_data: auto}`` on DP_CLI_UTTS of the tone corpus's
+    train split (odd: the step cap trims one rank's second batch), in one
+    ckpdir: both ranks log the same losses at the same steps, rank 0 alone
+    writes the checkpoints (saved every step, a barrier after each), and a
+    second invocation resumes on both ranks at the saved step."""
+    import yaml
+
+    from ss_asr_tpu_torch.data.index import load_index, save_index
+
+    d = os.path.join(tmp, "dp_cli")
+    os.makedirs(d, exist_ok=True)
+    idx = os.path.join(d, "train.tsv")
+    save_index(load_index(split[0])[:DP_CLI_UTTS], idx)
+    ck = os.path.join(d, "result", "dp")
+
+    def run(n_epochs):
+        c = train_config(config, (idx, split[1]), n_epochs)
+        c["asr"].update(train_batch_size=DP_CLI_B, valid_batch_size=DP_CLI_B, save_step=1)
+        c["parallel"] = {"distributed": True, "n_data": "auto"}
+        path = os.path.join(d, f"dp_{n_epochs}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(c, f)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(DP_RANKS),
+             "--master-addr", "127.0.0.1", "--master-port", str(free_port()),
+             "-m", "ss_asr_tpu_torch.cli.train", "ASRTrainer", "dp", path,
+             os.path.join(d, "runs"), os.path.join(d, "result"), "--seed", str(SEED),
+             "--verbose", "0", "--device", DEVICE],
+            cwd=HERE, env={**os.environ, "PYTHONPATH": HERE}, capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode != 0:
+            fail(f"torchrun cli.train exited {proc.returncode}: {proc.stderr[-3000:]}")
+        logs = []
+        for sub in ("", f"rank{DP_RANKS - 1}"):
+            with open(os.path.join(d, "runs", "dp", "asr", sub, "metrics.jsonl")) as f:
+                logs.append([(r["step"], r["value"]) for r in map(json.loads, f)
+                             if r["key"] == "asr_train_loss"])
+        with open(os.path.join(ck, "tracker.json")) as f:
+            step = json.load(f)["asr"]["step"]
+        return time.perf_counter() - t0, logs, step
+
+    secs, logs, step = run(DP_CLI_EPOCHS)
+    files = sorted(os.listdir(ck))
+    print(f"torchrun --nproc-per-node {DP_RANKS} cli.train ASRTrainer: {DP_CLI_UTTS} tone "
+          f"utterances, batch {DP_CLI_B} a rank, {DP_CLI_EPOCHS} epochs in {secs:.1f} s "
+          f"(processes included); rank 0 steps {[s for s, _ in logs[0]]}, rank {DP_RANKS - 1} "
+          f"{[s for s, _ in logs[1]]}, losses {[f'{v:.4f}' for _, v in logs[0]]}; tracker "
+          f"step {step}; ckpdir {files}", flush=True)
+    if not (logs[0] == logs[1] and [s for s, _ in logs[0]] == list(range(DP_CLI_EPOCHS))
+            and step == DP_CLI_EPOCHS):
+        fail(f"torchrun cli.train: the ranks' logs {logs} or the tracker step {step} are not "
+             f"{DP_CLI_EPOCHS} equal steps (one a rank and epoch, the cap trimming the other)")
+    if not {"asr.npz", "asr_opt.npz", "tracker.json"} <= set(files):
+        fail(f"torchrun cli.train: the ckpdir holds {files}")
+    secs, logs, step = run(1)
+    resumed = [[s for s, _ in lg[DP_CLI_EPOCHS:]] for lg in logs]
+    print(f"torchrun cli.train resumed: rank 0 steps {resumed[0]}, rank {DP_RANKS - 1} "
+          f"{resumed[1]} in {secs:.1f} s; tracker step {step}", flush=True)
+    if not (resumed[0] == resumed[1] == [DP_CLI_EPOCHS] and logs[0] == logs[1]
+            and step == DP_CLI_EPOCHS + 1):
+        fail(f"torchrun cli.train did not resume on both ranks at step {DP_CLI_EPOCHS}: "
+             f"{resumed}, tracker step {step}")
+
+
+def recording(t):
+    """Record each ``(x, lens, model, lm, tokens)`` decode call of Transcriber ``t``."""
+    calls, real = [], t._decode
+
+    def decode(x, lens, model, lm):
+        toks = real(x, lens, model, lm)
+        calls.append((x, lens, model, lm, toks))
+        return toks
+
+    t._decode = decode
+    return calls
+
+
+def mesh_matches_single(torch, tag, single, meshed, signals):
+    """The mesh Transcriber's transcripts against the single device's on
+    the same signals.  Equal, or else held by the near-tie rule at the
+    token level: a row may diverge only where the single device's path,
+    replayed through the plain step, has a gap below NEAR_TIE (greedy:
+    the top two scores; beam: neighbours among the K + 1 best candidates),
+    at most MAX_NEAR_TIE_ROWS rows.  Returns the near-tie rows."""
+    import numpy as np
+
+    from ss_asr_tpu_torch.models import las
+    from ss_asr_tpu_torch.ops.kernels import beam as kbeam
+
+    calls = [recording(t) for t in (single, meshed)]
+    want = single.transcribe_signal_batch(signals, sr=SR)
+    got = meshed.transcribe_signal_batch(signals, sr=SR)
+    for t in (single, meshed):
+        del t._decode
+    if len(calls[1]) != len(meshed._w[2]):
+        fail(f"{tag}: {len(calls[1])} shard decodes over a mesh of {len(meshed._w[2])}")
+    if got == want:
+        print(f"{tag}: the mesh's {len(got)} transcripts ({len(calls[1])} shards) equal the "
+              f"single device's", flush=True)
+        return 0
+    (x, lens, model, lm, toks), = calls[0]
+    lm, w = single._fused_lm(lm)
+    with torch.inference_mode():
+        enc_h, enc_lens = las.listener_apply(model.encoder, x, lens)
+        comp_h = las.attention_precompute(model.attention, enc_h)
+        if single.beam_size == 1:
+            pad = lambda a: np.pad(a, ((0, 0), (0, MAX_STEPS - a.shape[1])))  # noqa: E731
+            want_t = pad(np.asarray(toks))
+            got_t = np.concatenate([pad(np.asarray(c[4])) for c in calls[1]])
+            gaps = plain_gaps(torch, model, enc_h, comp_h, enc_lens,
+                              torch.from_numpy(want_t).to(enc_h.device), lm, w)
+        else:
+            K = single.beam_size
+
+            def frontier(x_, lens_, m_, l_):
+                e, el = las.listener_apply(m_.encoder, x_, lens_)
+                return kbeam.beam_device(m_, e, las.attention_precompute(m_.attention, e), el, K,
+                                         MAX_STEPS, l_ if w else None, w)
+
+            want_f = frontier(x, lens, model, lm)
+            shards = [frontier(c[0], c[1], c[2], c[3]) for c in calls[1]]
+            got_f = [torch.cat([s[i] for s in shards], 1 if i < 2 else 0) for i in range(5)]
+            cands = replay_frontier(torch, model, lm, w, enc_h, comp_h, enc_lens, *want_f[:2])[0]
+            gaps = frontier_gaps(torch, cands, K, MAX_STEPS)
+
+            def steps(f):  # [B, T, 2, K]: each step's tokens and parents
+                return np.stack([f[0].cpu().numpy(), f[1].cpu().numpy()], -2).transpose(1, 0, 2, 3)
+
+            want_t, got_t = steps(want_f), steps(got_f)
+    near, _, _ = compare_tokens(tag, got_t, want_t, gaps)
+    return near
+
+
+def check_mesh_serving(torch, config, asr_tree, lm_path, new_asr_tree, sigs, tmp):
+    """Phase 12 (c): ``Transcriber(mesh=make_mesh(devices=[card, card]))``
+    beside the single-device Transcriber on the phase-6 signals, greedy,
+    greedy + LM and the default decode (beam 3 + LM 0.5): the mesh's
+    transcripts equal the single device's (``mesh_matches_single``), each
+    shard decoding through the kernels (counted); then ``serve_http`` over
+    the mesh Transcriber (default decode): every reply 200 and equal to the
+    mesh's direct batch, ``?detail=1&nbest=3`` equal to its direct call, and
+    one ``/reload`` after which a reply equals a mesh Transcriber loaded
+    from the new checkpoint.  Returns {path: launches}."""
+    from ss_asr_tpu_torch.api import Transcriber
+    from ss_asr_tpu_torch.data.audio import read_wav
+    from ss_asr_tpu_torch.ops.frontend import compute_fbank
+    from ss_asr_tpu_torch.parallel.mesh import make_mesh
+    from ss_asr_tpu_torch.utils.checkpoint import save_pytree
+
+    mesh = make_mesh(devices=[DEVICE] * DP_RANKS)
+    asr_path = os.path.join(tmp, "mesh_asr.npz")
+    new_path = os.path.join(tmp, "mesh_new_asr.npz")
+    save_pytree(asr_path, asr_tree)
+    save_pytree(new_path, new_asr_tree)
+    sizes = {"asr": {"mdl": config["asr"]["mdl"]}, "char_lm": config["char_lm"]}
+
+    def pair(lm, path=asr_path, **kw):
+        """(single-device, mesh) Transcribers of one checkpoint."""
+        cfg = kw.pop("config", sizes)
+        return [Transcriber.from_checkpoint(path, cfg, lm_path=lm, device=DEVICE,
+                                            max_steps=MAX_STEPS, sr=SR, **kw, **extra)
+                for extra in ({}, {"mesh": mesh})]
+
+    bodies = [wav_bytes(s, SR) for s in sigs]
+    signals = [read_wav(io.BytesIO(b))[1] for b in bodies]
+    launches, near = {}, 0
+    for tag, lm, kw, kernel in (("greedy", None, {"beam_size": 1}, "greedy_decode"),
+                                ("greedy + LM", lm_path, {"beam_size": 1, "lm_weight": 0.5},
+                                 "greedy_decode_lm"),
+                                ("default", lm_path, {"config": config}, "beam_decode_lm")):
+        single, meshed = pair(lm, **kw)
+        if meshed.mesh is not mesh or len(meshed._w[2]) != DP_RANKS:
+            fail(f"mesh {tag}: the Transcriber holds {len(meshed._w[2])} replicas")
+        meshed.transcribe_signal_batch(signals[:1], sr=SR)  # warm-up
+        zero_launches()
+        meshed.transcribe_signal_batch(signals, sr=SR)
+        launches[f"mesh {tag}"] = ls = read_launches()
+        for name in ("fbank", "lstm_fwd", kernel):
+            if ls[name] < DP_RANKS:
+                fail(f"mesh {tag}: launched {name} {ls[name]} times over {DP_RANKS} shards")
+        require_cluster_route(f"mesh {tag}", ls)
+        near += mesh_matches_single(torch, f"mesh {tag}", single, meshed, signals)
+        walls = {}
+        for who, t in (("single device", single), (f"mesh of {DP_RANKS}", meshed)):
+            times = []
+            for _ in range(MESH_TIMED):
+                t0 = time.perf_counter()
+                t.transcribe_signal_batch(signals, sr=SR)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            walls[who] = f"{statistics.median(times):.3f} ms (min {min(times):.3f})"
+        print(f"mesh {tag}: a batch of {len(signals)} signals, wall median of {MESH_TIMED}: "
+              f"{walls}", flush=True)
+    # the server over the mesh Transcriber of the default decode
+    y = signals[1]
+    want_detail = meshed.transcribe_fbank_detailed(compute_fbank(y, SR, device=DEVICE),
+                                                   n_best=3)[0]
+    want_fresh = pair(lm_path, path=new_path, config=config)[1].transcribe_signal(y, SR)
+
+    def detail(post):
+        code, obj = post("/transcribe?detail=1&nbest=3", bodies[1])
+        if not (code == 200 and [h["text"] for h in obj["hypotheses"]]
+                == [h.text for h in want_detail]):
+            fail(f"serve mesh: ?detail=1&nbest=3: {code} {obj}, the direct call "
+                 f"{[h.text for h in want_detail]}")
+        print(f"serve mesh: ?detail=1&nbest=3 200, {len(want_detail)} hypotheses equal the mesh's "
+              "direct call", flush=True)
+
+    def reload(post):
+        shutil.copyfile(new_path, asr_path)
+        code, obj = post("/reload")
+        if code != 200:
+            fail(f"serve mesh: /reload {code} {obj}")
+        code, obj = post("/transcribe", bodies[1])
+        if (code, obj) != (200, {"text": want_fresh}):
+            fail(f"serve mesh: /transcribe after /reload {code} {obj} != {want_fresh!r}")
+        if any(m is not meshed._w[0] for m, _ in meshed._w[2]):
+            fail("serve mesh: /reload left a mesh device on the old weights")
+        print("serve mesh: /reload 200; every mesh device holds the new pair and the next reply "
+              "equals a mesh Transcriber loaded from the new checkpoint", flush=True)
+
+    dec = ("fbank", "lstm_fwd", "beam_decode_lm")
+    launches.update(serve_phase(torch, "serve mesh", meshed, sigs, dec, sr=SR,
+                                reload_paths={"asr": asr_path, "lm": lm_path},
+                                routes=[("?detail", detail, dec + ("spell_fwd",)),
+                                        ("/reload", reload, dec)]))
+    print(f"mesh serving: near-tie rows {near} in all", flush=True)
+    return launches
+
+
+def check_data_parallel(torch, rng, config, asr_tree, lm_path, new_asr_tree, sigs, split, tmp):
+    """Phase 12: the DP step over two ranks on the card, ``cli.train`` under
+    torchrun, mesh serving.  Returns {path: launches}."""
+    t0 = time.perf_counter()
+    launches = check_dp_step(torch, rng, config, asr_tree, tmp)
+    check_dp_cli(config, split, tmp)
+    launches.update(check_mesh_serving(torch, config, asr_tree, lm_path, new_asr_tree, sigs, tmp))
+    print(f"phase 12 (data parallelism, mesh serving): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "ss_asr_tpu_torch")):
         fail(f"ss_asr_tpu_torch not found beside {os.path.basename(__file__)}: run from a checkout")
@@ -3207,6 +3720,10 @@ def main() -> None:
         # phase 11: the trainers' options and import_ckpt, on a stream of their own
         launches.update(check_options(torch, np.random.default_rng(SEED + 11), config, asr_tree,
                                       trained_asr, lm_path, held_sigs, tmp))
+        # phase 12: data parallelism and mesh serving, on a stream of their own
+        launches.update(check_data_parallel(torch, np.random.default_rng(SEED + 12), config,
+                                            asr_tree, paths["lm"], new_asr_tree, sigs, split,
+                                            tmp))
     # each kernel's launches on the serving, training and test paths, each path counted on its own
     counts = {name: sum(ls[name] for ls in launches.values()) for name in results}
     cluster_launches = {name: sum(ls[counter] for ls in launches.values())

@@ -17,12 +17,14 @@ data preparation (``cli.mkdata``, ``cli.preprocess``); and the
 semi-supervised trainers (text autoencoder, speech autoencoder, adversarial
 listener) with the ``Seed`` chain that runs them (``cli.train``); the
 char-LM trainer (``cli.generate``, ``cli.lm_predict``), the test-set
-decoder ``ASRTester``, ``cli.pseudolabel`` and ``cli.avg_ckpt``.  Its hot
-loops run as CUDA C++ kernels written for ``sm_90a`` (``csrc/``): the LSTM
-time loop forward and backward, the whole greedy decode and the whole beam
-frontier (each with and without the LM), the attend-and-spell forward and
-backward, and the fused log-mel frontend.  The checkpoint import CLI is not
-ported yet.
+decoder ``ASRTester``, ``cli.pseudolabel``, ``cli.avg_ckpt`` and
+``cli.import_ckpt``; and data parallelism (``parallel/``: every trainer over
+``torch.distributed`` ranks, mesh serving in ``Transcriber(mesh=)``; tensor
+parallelism is left out).  Its hot loops run as CUDA C++ kernels written
+for ``sm_90a`` (``csrc/``): the LSTM time loop forward and backward, the
+whole greedy decode and the whole beam frontier (each with and without the
+LM), the attend-and-spell forward and backward, and the fused log-mel
+frontend.
 
 Routing is by device alone: a CUDA tensor goes to the kernel, a CPU tensor
 to the kernel's plain PyTorch version beside it.  There is no switch.

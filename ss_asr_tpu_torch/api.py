@@ -9,12 +9,20 @@ listener and the decode (greedy or beam, ± char-LM fusion) run on the
 model's device — the CUDA kernels on a GPU, their plain versions on the
 CPU; plus the detailed (n-best, confidence, timestamps), long-form and
 streaming decodes.  The signal/frame bucketing (``sr``, ``t_bucket``, the
-500 ms sample grid) and the empty-row rules are the JAX package's.  Mesh
-serving raises ``NotImplementedError`` naming its ROADMAP.md item.
+500 ms sample grid) and the empty-row rules are the JAX package's.
+
+``mesh=`` (``parallel.mesh.Mesh`` with a ``data`` axis) serves the rows
+over several devices, as the JAX package's mesh ``Transcriber`` does: the
+(ASR, LM) pair is placed on each mesh device once, a batch is padded to a
+multiple of the axis with zero-length rows, each row shard decodes on its
+device through the same kernels as a plain batch, and the rows join in
+order.  The shards run one after another from the calling thread; a shard
+of padding rows alone is not decoded.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
@@ -29,10 +37,9 @@ from ss_asr_tpu_torch.models import charlm as charlm_mod
 from ss_asr_tpu_torch.models import las
 from ss_asr_tpu_torch.ops.frontend import log_mel_fbank_batch
 from ss_asr_tpu_torch.ops.kernels.beam import MAX_BEAM
+from ss_asr_tpu_torch.parallel.mesh import DATA_AXIS
 from ss_asr_tpu_torch.utils import checkpoint as ckpt
 from ss_asr_tpu_torch.vocab import Mapper
-
-MESH_TODO = "ROADMAP.md port item 10 (data-parallel serving and training)"
 
 
 def round_up(x: int, m: int) -> int:
@@ -52,15 +59,24 @@ class Transcriber:
         mesh=None,
     ):
         """``model`` (and ``lm``) already on their device; decoding runs
-        there.  ``beam_size`` > 1 decodes with a beam of that width (at
-        most ``MAX_BEAM``, the widest the beam kernel takes)."""
-        if mesh is not None:
-            raise NotImplementedError(f"mesh serving is not ported yet, see {MESH_TODO}")
+        there, or with ``mesh`` on the mesh's devices.  ``beam_size`` > 1
+        decodes with a beam of that width (at most ``MAX_BEAM``, the widest
+        the beam kernel takes)."""
         if not 1 <= beam_size <= MAX_BEAM:
             raise ValueError(f"beam_size {beam_size} outside 1..{MAX_BEAM}")
-        #: the (ASR, LM) pair in ONE tuple, so a hot reload swaps both at
-        #: once; every decode reads it once per call (no torn pair)
-        self._w = (model.eval(), lm.eval() if lm is not None else None)
+        self.mesh = mesh
+        self.device = model.embed.weight.device
+        if mesh is not None:
+            names = tuple(getattr(mesh, "axis_names", ()))
+            if DATA_AXIS not in names:
+                raise ValueError(f"mesh needs a '{DATA_AXIS}' axis, has {names}")
+            self._slots = tuple(mesh.devices)
+        else:
+            self._slots = (self.device,)
+        #: the (ASR, LM) pair and its replica on each mesh device, in ONE
+        #: tuple, so a hot reload swaps them all at once; every decode reads
+        #: it once per call (no torn pair)
+        self._w = self.replicate(model.eval(), lm.eval() if lm is not None else None)
         self.cfg = model.cfg
         self.lm_cfg = lm.cfg if lm is not None else None
         self.lm_weight = lm_weight
@@ -68,8 +84,17 @@ class Transcriber:
         self.max_steps = max_steps
         self.sr = sr
         self.t_bucket = t_bucket
-        self.device = model.embed.weight.device
         self.mapper = Mapper()
+
+    def replicate(self, model, lm) -> tuple:
+        """``(model, lm, replicas)``: replicas[i] the pair on the mesh's i-th
+        device, copied once per distinct device (the pair itself on its own)."""
+        on = {self.device: (model, lm)}
+        for d in self._slots:
+            if d not in on:
+                on[d] = (copy.deepcopy(model).to(d).eval(),
+                         copy.deepcopy(lm).to(d).eval() if lm is not None else None)
+        return model, lm, tuple(on[d] for d in self._slots)
 
     @property
     def model(self) -> las.LAS:
@@ -116,8 +141,7 @@ class Transcriber:
             return None, 0.0
         return lm, self.lm_weight
 
-    def _decode(self, x: torch.Tensor, lens: torch.Tensor) -> np.ndarray:
-        model, lm = self._w  # one snapshot: no torn (ASR, LM) pair
+    def _decode(self, x: torch.Tensor, lens: torch.Tensor, model, lm) -> np.ndarray:
         lm, lmw = self._fused_lm(lm)
         if self.beam_size > 1:
             toks, _ = beam_decode(model, x, lens, beam_size=self.beam_size,
@@ -128,24 +152,43 @@ class Transcriber:
                                                lm=lm, lm_weight=lmw)
         return toks.cpu().numpy()
 
-    def _prepare_batch(self, fbanks):
+    def _over_mesh(self, items: list, rows_fn, pad_row) -> list:
+        """``rows_fn(items, model, lm, pad_len)`` over the rows, on the mesh's
+        devices: ``items`` padded with ``pad_row`` (zero length) up to a
+        multiple of the data axis, one contiguous shard a device, the
+        results joined in order.  ``pad_len``, the longest item, sets every
+        shard's bucketed length, as one batch would."""
+        replicas = self._w[2]  # one snapshot: no torn (ASR, LM) pair
+        pad_len = max(len(x) for x in items)
+        if len(replicas) == 1:
+            return rows_fn(items, *replicas[0], pad_len)
+        n_real, per = len(items), -(-len(items) // len(replicas))
+        items = items + [pad_row] * (per * len(replicas) - n_real)
+        out = []
+        for i, (m, l) in enumerate(replicas):
+            out.extend(rows_fn(items[i * per:(i + 1) * per], m, l, pad_len))
+        return out[:n_real]
+
+    def _prepare_batch(self, fbanks, device, pad_len: int):
         """fbank list -> None when every row is empty, else
-        ``(empty_mask, x [B, T_bucketed, feat], lens)`` on the device."""
+        ``(empty_mask, x [B, T_bucketed, feat], lens)`` on ``device``."""
         lens = np.array([f.shape[0] for f in fbanks], dtype=np.int32)
         if int(lens.max()) == 0:
             return None
-        T = round_up(int(lens.max()), self.t_bucket)
+        T = round_up(pad_len, self.t_bucket)
         x = np.zeros((len(fbanks), T, self.cfg.feature_dim), dtype=np.float32)
         for i, f in enumerate(fbanks):
             x[i, : f.shape[0]] = f
-        return (lens == 0, torch.from_numpy(x).to(self.device),
-                torch.from_numpy(lens).to(self.device))
+        return lens == 0, torch.from_numpy(x).to(device), torch.from_numpy(lens).to(device)
 
     @staticmethod
     def _fbank_list(fbanks) -> list:
         if isinstance(fbanks, np.ndarray) and fbanks.ndim == 2:
             return [fbanks]
         return list(fbanks)
+
+    def _empty_fbank(self) -> np.ndarray:
+        return np.zeros((0, self.cfg.feature_dim), np.float32)
 
     def transcribe_fbank(
         self, fbanks: Union[np.ndarray, Sequence[np.ndarray]]
@@ -154,11 +197,14 @@ class Transcriber:
         fbanks = self._fbank_list(fbanks)
         if not fbanks:
             return []
-        prep = self._prepare_batch(fbanks)
+        return self._over_mesh(fbanks, self._fbank_rows, self._empty_fbank())
+
+    def _fbank_rows(self, fbanks, model, lm, pad_len) -> List[str]:
+        prep = self._prepare_batch(fbanks, model.embed.weight.device, pad_len)
         if prep is None:
             return ["" for _ in fbanks]
         empty, x, lens = prep
-        out = [self.mapper.translate(t) for t in self._decode(x, lens)]
+        out = [self.mapper.translate(t) for t in self._decode(x, lens, model, lm)]
         # a zero-frame row has no audio to attend to: its transcript is ""
         return ["" if e else o for e, o in zip(empty, out)]
 
@@ -182,16 +228,19 @@ class Transcriber:
         fbanks = self._fbank_list(fbanks)
         if not fbanks:
             return []
+        return self._over_mesh(
+            fbanks, lambda f, m, l, p: self._detailed_rows(f, m, l, p, n_best, timestamps),
+            self._empty_fbank())
+
+    def _detailed_rows(self, fbanks, model, lm, pad_len, n_best, timestamps):
         empty_hyp = align_mod.Hypothesis(
             text="", score=0.0, avg_logprob=0.0,
             char_starts=np.zeros((0,), np.float32), char_frames=np.zeros((0,), np.int32))
-        prep = self._prepare_batch(fbanks)
+        prep = self._prepare_batch(fbanks, model.embed.weight.device, pad_len)
         if prep is None:
             return [[empty_hyp] for _ in fbanks]
         empty, x, lens = prep
-        model, lm = self._w  # one snapshot: no torn (ASR, LM) pair
         lm, lmw = self._fused_lm(lm)
-
         beam = n_best > 1 or self.beam_size > 1
         if beam:
             toks, tok_lens, scores = beam_decode_nbest(
@@ -255,19 +304,25 @@ class Transcriber:
         signals = [np.asarray(s, dtype=np.float32).reshape(-1) for s in signals]
         if not signals:
             return []
+        return self._over_mesh(
+            signals, lambda y, m, l, p: self._signal_rows(y, m, l, p, sr, s_bucket_ms),
+            np.zeros((0,), np.float32))
+
+    def _signal_rows(self, signals, model, lm, pad_len, sr, s_bucket_ms) -> List[str]:
         lens = np.array([len(s) for s in signals], dtype=np.int32)
         if int(lens.max()) == 0:
             return ["" for _ in signals]
         step = max(int(sr * s_bucket_ms) // 1000, 1)
-        S = -(-int(lens.max()) // step) * step
+        S = -(-pad_len // step) * step
         buf = np.zeros((len(signals), S), dtype=np.float32)
         for i, s in enumerate(signals):
             buf[i, : len(s)] = s
-        buf_d = torch.from_numpy(buf).to(self.device)
-        lens_d = torch.from_numpy(lens).to(self.device)
+        device = model.embed.weight.device
+        buf_d = torch.from_numpy(buf).to(device)
+        lens_d = torch.from_numpy(lens).to(device)
         with torch.inference_mode():
             fb, fl = log_mel_fbank_batch(buf_d, lens_d, sr, n_mels=self.cfg.feature_dim)
-        out = [self.mapper.translate(t) for t in self._decode(fb, fl)]
+        out = [self.mapper.translate(t) for t in self._decode(fb, fl, model, lm)]
         # a zero-sample row has no audio (same contract as transcribe_fbank)
         return ["" if n == 0 else o for n, o in zip(lens, out)]
 

@@ -12,6 +12,12 @@ and, when it exists, ``char_lm.npz``), ``LMTrainer`` / ``CHARLMTrainer``
 (the char-LM), ``TAETrainer``, ``SAETrainer``, ``AdvTrainer`` /
 ``ADVTrainer`` or ``Seed`` (the TAE / ADV / SAE chain over the ASR relay
 files).
+
+Data parallel: a config with ``parallel: {distributed: true, n_data: auto}``
+brings up ``torch.distributed`` from ``torchrun``'s environment before the
+trainers are built, one rank per device (``parallel/mesh.py``)::
+
+    python -m torch.distributed.run --nproc-per-node N -m ss_asr_tpu_torch.cli.train ...
 """
 
 from __future__ import annotations
@@ -55,6 +61,21 @@ def main(argv=None):
     random.seed(paras.seed)
     np.random.seed(paras.seed)
 
+    distributed = bool((config.get("parallel") or {}).get("distributed"))
+    if distributed:
+        from ss_asr_tpu_torch.parallel import mesh as pmesh
+
+        paras.device = str(pmesh.init_process_group(paras.device))
+    try:
+        _run(config, paras)
+    finally:
+        if distributed:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(config, paras):
     if paras.type == "Seed":
         from ss_asr_tpu_torch.train.seed import asr_seed_train
 

@@ -1,8 +1,11 @@
 """ASR dataset: index-driven batches with bucketed static shapes.
 
-Port of ``ss_asr_tpu/data/asr_dataset.py`` with its signature (no
-multi-host shards, ``host_shard`` / ``set_epoch``, which wait for ROADMAP
-item 10).  ``sort_key`` reorders the index as pandas' ``sort_values`` does
+Port of ``ss_asr_tpu/data/asr_dataset.py`` with its signature.
+``host_shard=(rank, n)`` keeps a strided shard of the index for one
+data-parallel rank (``shard_index_rows``), and ``set_epoch`` rotates both
+the shard's offset and the order in which ``iter_batches`` dispatches its
+batches, as the JAX package does (see ``set_epoch``).  ``sort_key``
+reorders the index as pandas' ``sort_values`` does
 (``data.index.sort_order``); ``iter_batches(shuffle=True)`` permutes the
 batch starts with the JAX package's generator and seed.  ``text_only`` batches carry no fbanks but a
 noised copy of the text (the text autoencoder's input): each character but
@@ -52,10 +55,16 @@ class Batch:
 class ASRDataset:
     def __init__(self, tsv_file: str, batch_size: int = 32, text_only: bool = False,
                  drop_rate: float = 0.0, t_bucket: int = 128, l_bucket: int = 16,
-                 sort_key: str = "", sort_ascending: bool = True, seed: int = 0):
+                 sort_key: str = "", sort_ascending: bool = True, seed: int = 0,
+                 host_shard: Optional[Tuple[int, int]] = None):
         self.rows: List[Dict] = load_index(tsv_file)
         if sort_key:
             self.rows = [self.rows[i] for i in sort_order(self.rows, sort_key, sort_ascending)]
+        self.host_shard = host_shard
+        self._all_rows = self.rows
+        if host_shard is not None:
+            self.rows = shard_index_rows(self.rows, *host_shard)
+        self._epoch = 0
         self.batch_size = batch_size
         self.text_only = text_only
         self.drop_rate = drop_rate
@@ -66,6 +75,21 @@ class ASRDataset:
         self.num_samples = len(self.rows)
         self.feature_dim = (int(np.load(self.rows[0]["path_to_fbank"]).shape[1])
                             if self.rows and not text_only else 0)
+
+    def set_epoch(self, epoch: int) -> None:
+        """The per-epoch rotation of a sharded dataset (a no-op without a
+        shard).  The step cap (``Solver.global_min_batches``) makes every
+        rank dispatch the same number of batches, and what a rank's order
+        leaves past the cap is skipped that epoch.  Two rotations together
+        skip no row forever: the strided shard's offset (which rows live on
+        which rank) and, in ``iter_batches``, the dispatch order (so that
+        the cap drops other batches each epoch)."""
+        self._epoch = int(epoch)
+        if self.host_shard is None:
+            return
+        host_id, num_hosts = self.host_shard
+        self.rows = shard_index_rows(self._all_rows, (host_id + epoch) % num_hosts, num_hosts)
+        self.num_samples = len(self.rows)
 
     def get_char_dim(self) -> int:
         return self.mapper.get_dim()
@@ -142,6 +166,9 @@ class ASRDataset:
         if shuffle:
             rng = np.random.default_rng(seed if seed is not None else self.rng.integers(2**31))
             rng.shuffle(starts)
+        elif self.host_shard is not None and self._epoch and len(starts) > 1:
+            r = self._epoch % len(starts)  # the dispatch order's rotation (set_epoch)
+            starts = starts[r:] + starts[:r]
         if prefetch <= 0:
             for s in starts:
                 yield self.get_batch(s, pad_to_full=not drop_last)
@@ -212,3 +239,9 @@ def prepare_y(y: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     if y.ndim == 3:
         y = y[0]
     return y, ((y != 0).sum(axis=-1) + 1).astype(np.int32)
+
+
+def shard_index_rows(rows: List[Dict], host_id: int, num_hosts: int) -> List[Dict]:
+    """One rank's strided shard of a length-sorted index: it stays sorted,
+    and the ranks' audio balances."""
+    return rows[host_id::num_hosts]

@@ -7,9 +7,11 @@ log_softmax(LM)`` (the LM term only with an LM), summed over the
 hypothesis, with an optional length normalisation at the end.  The
 frontier loop is ``ops.kernels.beam.beam_device``: the CUDA kernel on the
 card, ``beam_scan_plain`` beside it (the port of ``_beam_scan``) on the
-CPU.  Both stop once every beam is done, which gives the fixed-trip scan's
-results (a finished beam extends by SOS at no cost, so later steps cannot
-reorder the frontier).  The backtrack over (parent, token) pointers runs
+CPU.  With ``early_exit`` (the default) both stop once every beam is done,
+which gives the fixed-trip scan's results (a finished beam extends by SOS
+at no cost, so later steps cannot reorder the frontier);
+``early_exit=False`` runs the plain version for all ``max_steps``, as the
+JAX package's fixed-trip scan does (see ``beam_device``).  The backtrack over (parent, token) pointers runs
 on the host, as in JAX.
 """
 
@@ -26,14 +28,15 @@ from ss_asr_tpu_torch.ops.kernels.beam import beam_device
 from ss_asr_tpu_torch.vocab import EOS_ID
 
 
-def _beam_frontier(model, x, x_lens, K, max_steps, lm, lm_weight, length_norm):
+def _beam_frontier(model, x, x_lens, K, max_steps, lm, lm_weight, length_norm, early_exit):
     """Listener + frontier -> numpy (toks [T,B,K], parents, scores [B,K])."""
     use_lm = lm is not None and lm_weight != 0.0
     with torch.inference_mode():
         enc_h, enc_lens = las.listener_apply(model.encoder, x, x_lens)
         comp_h = las.attention_precompute(model.attention, enc_h)
         toks, parents, scores, _, hyp_len = beam_device(
-            model, enc_h, comp_h, enc_lens, K, max_steps, lm if use_lm else None, lm_weight)
+            model, enc_h, comp_h, enc_lens, K, max_steps, lm if use_lm else None, lm_weight,
+            early_exit=early_exit)
         toks, parents, scores, hyp_len = (t.cpu().numpy() for t in (toks, parents, scores,
                                                                     hyp_len))
     if length_norm:
@@ -73,20 +76,21 @@ def _backtrack(toks, parents, final_scores, max_steps):
 def beam_decode(
     model: las.LAS, x: torch.Tensor, x_lens: torch.Tensor, beam_size: int = 8,
     max_steps: int = 200, lm: Optional[charlm_mod.CharLM] = None, lm_weight: float = 0.0,
-    length_norm: bool = False,
+    length_norm: bool = False, early_exit: bool = True,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """fbanks [B, T, feat] -> (tokens [B, max_steps] int32 pad-filled,
     lengths [B]).  ``length_norm`` picks the final hypothesis by score /
-    length instead of the raw sum of log-probs."""
+    length instead of the raw sum of log-probs; ``early_exit`` as
+    ``beam_device``."""
     toks, parents, scores = _beam_frontier(model, x, x_lens, beam_size, max_steps, lm,
-                                           lm_weight, length_norm)
+                                           lm_weight, length_norm, early_exit)
     return _backtrack(toks, parents, scores, max_steps)
 
 
 def beam_decode_nbest(
     model: las.LAS, x: torch.Tensor, x_lens: torch.Tensor, beam_size: int = 8,
     max_steps: int = 200, lm: Optional[charlm_mod.CharLM] = None, lm_weight: float = 0.0,
-    length_norm: bool = False, n_best: Optional[int] = None,
+    length_norm: bool = False, early_exit: bool = True, n_best: Optional[int] = None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The whole frontier, for rescoring: ``(tokens [B, n, max_steps],
     lengths [B, n], scores [B, n])`` with ``n = min(n_best or beam_size,
@@ -96,7 +100,7 @@ def beam_decode_nbest(
         raise ValueError(f"n_best must be >= 1, got {n_best}")
     n = beam_size if n_best is None else min(n_best, beam_size)
     toks, parents, scores = _beam_frontier(model, x, x_lens, beam_size, max_steps, lm,
-                                           lm_weight, length_norm)
+                                           lm_weight, length_norm, early_exit)
     B = toks.shape[1]
     out = np.zeros((B, n, max_steps), dtype=np.int32)
     lengths = np.zeros((B, n), dtype=np.int32)

@@ -71,8 +71,10 @@ Frontier = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.T
 def beam_scan_plain(
     model: las.LAS, enc_h: torch.Tensor, comp_h: torch.Tensor, enc_lens: torch.Tensor,
     K: int, max_steps: int, lm: Optional[charlm_mod.CharLM] = None, lm_weight: float = 0.0,
+    early_exit: bool = True,
 ) -> Frontier:
-    """The beam frontier in plain PyTorch, stopping once every beam is done.
+    """The beam frontier in plain PyTorch, stopping once every beam is done
+    (``early_exit``) or after all ``max_steps`` (the fixed-trip scan).
 
     ``lm`` given means LM fusion."""
     B, S, _ = enc_h.shape
@@ -109,7 +111,7 @@ def beam_scan_plain(
     rows = torch.arange(B, device=dev)[:, None] * K
 
     for t in range(max_steps):
-        if bool(done.all()):
+        if early_exit and bool(done.all()):
             break
         state, lm_state, logp = forward(state, lm_state, last)
         # a finished beam may only extend by SOS, at no cost
@@ -251,7 +253,7 @@ def cached_weight_stream(model: las.LAS, lm: Optional[charlm_mod.CharLM],
 def beam_device(
     model: las.LAS, enc_h: torch.Tensor, comp_h: torch.Tensor, enc_lens: torch.Tensor,
     K: int, max_steps: int, lm: Optional[charlm_mod.CharLM] = None, lm_weight: float = 0.0,
-    route: Optional[Tuple[int, int]] = None,
+    route: Optional[Tuple[int, int]] = None, early_exit: bool = True,
 ) -> Frontier:
     """The beam frontier from listener memory.
 
@@ -259,11 +261,19 @@ def beam_device(
     lengths (clamped to >= 1 here); ``lm`` given means LM fusion; K in
     1..``MAX_BEAM``.  On the card ``beam_route`` picks the kernel's route
     from the shape; ``route=(C, U)`` asks for one that serves the shape
-    instead (the tests hold both), ``(0, 0)`` for one block per utterance."""
+    instead (the tests hold both), ``(0, 0)`` for one block per utterance.
+
+    ``early_exit=False`` runs the plain version's fixed trip of all
+    ``max_steps``.  The kernels stop a row once its beams are all done and
+    write SOS tokens and identity parents for its steps left: the fixed
+    trip's frontier too, since each step's top K leaves the beams sorted, so
+    a step over finished beams (their SOS candidates at no cost) keeps their
+    order (``tests/test_torch_beam.py`` holds both values against JAX)."""
     if not 1 <= K <= MAX_BEAM:
         raise ValueError(f"beam_device: beam size {K} outside 1..{MAX_BEAM}")
     if enc_h.device.type == "cpu":
-        return beam_scan_plain(model, enc_h, comp_h, enc_lens, K, max_steps, lm, lm_weight)
+        return beam_scan_plain(model, enc_h, comp_h, enc_lens, K, max_steps, lm, lm_weight,
+                               early_exit)
     dev = enc_h.device
     if dev.type != "cuda":
         raise ValueError(f"beam_device: no kernel for device {dev}")

@@ -1,7 +1,8 @@
 """Dynamic-batching serving runtime over the Transcriber API.
 
 Port of ``ss_asr_tpu/serve.py`` (``ServeStats``, ``_lattice``,
-``BatchingTranscriber`` with hot reload, and ``serve_http``; no mesh).
+``BatchingTranscriber`` with hot reload, and ``serve_http``), over a
+single-device or a mesh ``Transcriber``.
 Concurrent requests are coalesced into one decode call; the row count is
 padded up a power-of-two lattice with empty rows (their transcripts are
 dropped), so a batch's shape comes from a small set.
@@ -164,11 +165,12 @@ class BatchingTranscriber:
         layout (``convert.asr_state_from_params`` of a checkpoint).  Keys
         and shapes are checked first, so a checkpoint of another size is
         rejected before anything changes; an LM is rejected when the server
-        has none.  The new modules are built beside the live ones and the
-        (ASR, LM) pair swaps in ONE assignment: a batch in flight finishes
-        on the old pair, every later one uses the new, never a mix."""
+        has none.  The new modules are built beside the live ones (and
+        replicated onto every mesh device) and the (ASR, LM) pair swaps in
+        ONE assignment: a batch in flight finishes on the old pair, every
+        later one uses the new, never a mix."""
         t = self._t
-        model, lm = t._w
+        model, lm, _ = t._w
         self._check_like(asr_state, model, "asr")
         if lm_state is not None:
             if lm is None:
@@ -181,7 +183,8 @@ class BatchingTranscriber:
         if lm_state is not None:
             new_lm = copy.deepcopy(lm)
             new_lm.load_state_dict(lm_state)
-        t._w = (new_model.eval(), new_lm)
+        # with a mesh Transcriber the new pair is placed on every mesh device first
+        t._w = t.replicate(new_model.eval(), new_lm)
 
     def close(self, timeout: Optional[float] = None) -> None:
         """Stop accepting work, drain the queue, join the worker."""

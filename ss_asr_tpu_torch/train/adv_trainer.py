@@ -1,6 +1,6 @@
 """Adversarial (GAN-style) listener training.
 
-Port of ``ss_asr_tpu/train/adv_trainer.py`` on one device.  D = a
+Port of ``ss_asr_tpu/train/adv_trainer.py``.  D = a
 per-timestep MLP discriminator, G = the ASR listener, "real" data = the text
 autoencoder's ``TextEncoder`` output on transcripts.  Two steps per batch:
 
@@ -13,6 +13,9 @@ accumulators and NaN counters run over ONE parameter set {asr, tae, disc}:
 each reads every gradient for its NaN check (in the D-step the frozen text
 encoder's gradients are non-zero) and moves only its own subtree.  Their
 states are ``adv_G_opt.npz`` / ``adv_D_opt.npz`` in the JAX package's layout.
+Data parallel (``Solver``): a rank's shard of the index; the D-step and the
+G-step each average their own gradients and losses over the ranks in one
+all-reduce before their optimizer's step.
 """
 
 from __future__ import annotations
@@ -30,7 +33,6 @@ from ss_asr_tpu_torch.models import text_autoencoder as tae_mod
 from ss_asr_tpu_torch.train import losses
 from ss_asr_tpu_torch.train.optim import prefix_mask
 from ss_asr_tpu_torch.train.solver import Solver, joint_named_parameters, make_optim
-from ss_asr_tpu_torch.utils import checkpoint as ckpt
 
 G_TRAINED = (("asr", "encoder"),)
 D_TRAINED = (("disc",),)
@@ -44,7 +46,7 @@ class ADVTrainer(Solver):
         c = self.config["adv"]
         tb, lb = c.get("t_bucket", 128), c.get("l_bucket", 16)
         self.train_ds = ASRDataset(c["train_index"], batch_size=self.train_batch_size,
-                                   t_bucket=tb, l_bucket=lb)
+                                   t_bucket=tb, l_bucket=lb, host_shard=self.host_shard)
         # the reference reads adv.eval_index, which its own config lacks: either key
         eval_index = c.get("eval_index", c.get("valid_index"))
         self.valid_ds = ASRDataset(eval_index, batch_size=self.valid_batch_size,
@@ -80,6 +82,7 @@ class ADVTrainer(Solver):
         # loaded_ckpt: the discriminator's own checkpoint was found
         self.restore_opt(self.G_optim, self.g_opt_ckppath, G_TRAINED)
         self.restore_opt(self.D_optim, self.d_opt_ckppath, D_TRAINED)
+        self.broadcast_state(self.models.values(), [self.G_optim, self.D_optim])
 
     def _placed(self, b):
         return (torch.from_numpy(b.x).to(self.device), torch.from_numpy(b.x_lens).to(self.device),
@@ -108,6 +111,7 @@ class ADVTrainer(Solver):
         self.zero_grad()
         rl, fl, _, _ = self.d_losses(x, x_lens, y, y_lens, self.label_smoothing)
         (rl + fl).backward()
+        rl, fl = self.dp_average(self.D_optim.params.values(), rl.detach(), fl.detach())
         self.D_optim.step()
         return rl.detach(), fl.detach()
 
@@ -116,6 +120,7 @@ class ADVTrainer(Solver):
         self.zero_grad()
         loss = self.g_loss(x, x_lens)
         loss.backward()
+        (loss,) = self.dp_average(self.G_optim.params.values(), loss.detach())
         self.G_optim.step()
         return loss.detach()
 
@@ -123,7 +128,11 @@ class ADVTrainer(Solver):
         self.verbose(f"Training set total {len(self.train_ds)} batches")
         for epoch in range(self.n_epochs):
             self.verbose(f"Starting epoch {epoch + 1} out of {self.n_epochs}")
+            self.train_ds.set_epoch(epoch)
+            n_steps = self.global_min_batches(len(self.train_ds))
             for b_idx, b in enumerate(self.train_ds.iter_batches()):
+                if b_idx >= n_steps:
+                    break
                 self.verbose(f"Global step - {self.tr.step} ( {b_idx} / {len(self.train_ds)} )",
                              progress=True)
                 x, xl, y, yl = self._placed(b)
@@ -166,18 +175,18 @@ class ADVTrainer(Solver):
         self.lg.scalar("discrim_real_loss_eval", avg_real, self.tr.step)
         self.lg.scalar("discrim_fake_loss_eval", avg_fake, self.tr.step)
         self.lg.scalar("discrim_loss_eval", avg_loss, self.tr.step)
-        if avg_loss < self.tr.get_best():
+        if self.improved(avg_loss):
             self.tr.set_best(avg_loss)
             self.verbose(f"Best validation loss : {avg_loss:.4f} @ global step {self.tr.step}")
-            ckpt.save_pytree(self.best_ckppath, self.tree("disc"))
+            self.save_tree(self.best_ckppath, self.tree("disc"))
 
     def save_all(self):
-        ckpt.save_pytree(self.ckppath, self.tree("disc"))
-        ckpt.save_pytree(self.asrpath_out, self.tree("asr"))
-        ckpt.save_opt_state(self.g_opt_ckppath,
-                            convert.opt_state_leaves(self.G_optim, self.models, G_TRAINED))
-        ckpt.save_opt_state(self.d_opt_ckppath,
-                            convert.opt_state_leaves(self.D_optim, self.models, D_TRAINED))
+        self.save_tree(self.ckppath, self.tree("disc"))
+        self.save_tree(self.asrpath_out, self.tree("asr"))
+        self.save_opt(self.g_opt_ckppath,
+                      convert.opt_state_leaves(self.G_optim, self.models, G_TRAINED))
+        self.save_opt(self.d_opt_ckppath,
+                      convert.opt_state_leaves(self.D_optim, self.models, D_TRAINED))
 
     def close(self):
         self.verbose(f"Finished training! Saving most recent model at step {self.tr.step} "

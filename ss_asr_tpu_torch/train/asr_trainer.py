@@ -1,6 +1,6 @@
 """Supervised LAS training.
 
-Port of ``ss_asr_tpu/train/asr_trainer.py`` on one device.  A train step:
+Port of ``ss_asr_tpu/train/asr_trainer.py``.  A train step:
 with an ``asr.augment`` section, SpecAugment of the features
 (``ops/augment.py``); ``asr_forward`` with teacher ``y`` at the config's
 ``tf_rate``, ``masked_ce_per_utt``, the backward (on the card: kernels K2 /
@@ -11,6 +11,12 @@ the solver's generator on the host, moved to the device, in this order:
 the augment's four uniforms (``augment.draw_uniforms``), then the
 scheduled-sampling draws (``las.draw_scheduled_sampling``).  The tracker's
 step counts calls (micro-batches), as the JAX trainer's does.
+Data parallel (``parallel: {n_data: N}``, one rank per device): each rank
+trains on its shard of the index; a step pads the targets to the longest
+over the ranks, draws for the global batch and keeps its rows, and averages
+the gradients and the loss over the ranks before the optimizer's step
+(``Solver``).  Validation stays whole-corpus on every rank, so that the
+eval metrics agree without a gather.
 Validation decodes with greedy feedback for ``L - 1 + 30`` steps (the
 reference's free-run margin) and scores the first ``L - 1``.
 
@@ -49,7 +55,7 @@ class ASRTrainer(Solver):
         c = self.config["asr"]
         tb, lb = c.get("t_bucket", 128), c.get("l_bucket", 16)
         self.train_ds = ASRDataset(c["train_index"], batch_size=self.train_batch_size,
-                                   t_bucket=tb, l_bucket=lb)
+                                   t_bucket=tb, l_bucket=lb, host_shard=self.host_shard)
         self.valid_ds = ASRDataset(c["valid_index"], batch_size=self.valid_batch_size,
                                    t_bucket=tb, l_bucket=lb)
         self.mapper = self.train_ds.mapper
@@ -73,6 +79,7 @@ class ASRTrainer(Solver):
             if not convert.load_asr_opt_state_leaves(self.optim, self.model,
                                                      ckpt.load_opt_state(self.opt_ckppath)):
                 self.verbose("Optimizer state does not fit this optimizer; starting it fresh")
+        self.broadcast_state([self.model], [self.optim])
 
     def params_tree(self):
         return convert.asr_params_from_state(self.model.state_dict())
@@ -92,25 +99,40 @@ class ASRTrainer(Solver):
         """One update on a batch already on the device: fbanks x [B, T,
         feat], x_lens [B], targets y [B, L + 1] (SOS first) -> (loss,
         logits), both detached."""
-        L = y.shape[1] - 1
+        L_own = y.shape[1] - 1
+        L = self.global_width(L_own)
+        if L > L_own:  # SOS padding: masked out of the loss
+            y = torch.nn.functional.pad(y, (0, L - L_own))
+        Bg, rows = self.global_rows(y.shape[0])
         if self.aug_cfg is not None:  # the training features only; valid() sees clean ones
-            x = augment.spec_augment(x, x_lens, self.aug_cfg, generator=self.generator)
-        tf_draws, gumbel = las.draw_scheduled_sampling(L, y.shape[0], self.cfg.tf_rate, self.cfg,
+            draws = augment.draw_uniforms(Bg, self.aug_cfg, self.generator, x.device)
+            if rows is not None:
+                draws = tuple(d[rows] for d in draws)
+            x = augment.spec_augment(x, x_lens, self.aug_cfg, draws=draws)
+        tf_draws, gumbel = las.draw_scheduled_sampling(L, Bg, self.cfg.tf_rate, self.cfg,
                                                        self.generator, device=self.device)
+        if rows is not None:
+            gumbel = gumbel[:, rows].contiguous()
         self.model.zero_grad(set_to_none=True)
         _, logits, _ = las.asr_forward(self.model, x, x_lens, L, teacher=y, tf_draws=tf_draws,
                                        gumbel=gumbel)
         loss = losses.masked_ce_per_utt(logits, y[:, 1:], y)
         loss.backward()
+        (loss,) = self.dp_average(self.optim.params.values(), loss.detach())
         self.optim.step()
-        return loss.detach(), logits.detach()
+        return loss.detach(), logits.detach()[:, :L_own]
 
     def exec(self):
         self.verbose(f"Training set total {len(self.train_ds)} batches")
         timer = StepTimer()
         for epoch in range(self.n_epochs):
             self.verbose(f"Starting epoch {epoch + 1} out of {self.n_epochs}")
+            # data parallel: rotate the shard, then agree on the number of steps
+            self.train_ds.set_epoch(epoch)
+            n_steps = self.global_min_batches(len(self.train_ds))
             for b_ind, b in enumerate(self.train_ds.iter_batches()):
+                if b_ind >= n_steps:
+                    break
                 self.verbose(f"Batch: {b_ind}/{len(self.train_ds)}, global step: {self.tr.step}",
                              progress=True)
                 loss, logits = self.train_step(b)
@@ -173,12 +195,12 @@ class ASRTrainer(Solver):
                 self.lg.text(f"eval_hyp_{idx}",
                              f"{val_hyp[idx]} |predict vs. real| {val_txt[idx]}", self.tr.step)
 
-        if avg_loss < self.tr.get_best():
+        if self.improved(avg_loss):
             self.tr.set_best(avg_loss)
             self.verbose(f"Best validation loss for ASR : {avg_loss:.4f} @ global step "
                          f"{self.tr.step}")
-            ckpt.save_pytree(self.best_ckppath, self.params_tree())
-            if logits is not None:
+            self.save_tree(self.best_ckppath, self.params_tree())
+            if logits is not None and self.is_writer:
                 with open(os.path.join(self.ckpdir, "best_hyp.txt"), "w") as f:
                     for t1, t2 in zip(val_hyp, val_txt):
                         f.write(f"{t1},{t2}\n")

@@ -1,6 +1,6 @@
 """Char-LM training.
 
-Port of ``ss_asr_tpu/train/lm_trainer.py`` on one device.  A train step
+Port of ``ss_asr_tpu/train/lm_trainer.py``.  A train step
 unrolls the chunk with scheduled sampling (``charlm.teacher_forced_unroll``:
 the input at step 0 is SOS, after step t the label where the step's
 Bernoulli(``char_lm.mdl.tf_rate``) draw says so and the Gumbel-argmax sample
@@ -11,6 +11,11 @@ unroll is a ``lax.scan`` over ``gru_step`` with no Pallas kernel, and so is
 this one a loop of ``rnn.gru_step`` under autograd: no hand-written kernel,
 and no ``nn.GRU`` either, since scheduled sampling feeds each step's
 sampled id back.
+
+Data parallel (``Solver``): each rank reads its shard of the chunks
+(``LMDataset(host_shard=)``, equal-sized shares), draws for the global
+batch and keeps its rows, and averages the gradients and the loss over the
+ranks before the optimizer's step.
 
 Checkpoints are the JAX package's: ``char_lm.npz`` (the parameter tree),
 ``char_lm_opt.npz`` (the optax state's leaves), ``char_lm_best.npz`` and
@@ -26,7 +31,6 @@ from ss_asr_tpu_torch.data.lm_dataset import LMDataset
 from ss_asr_tpu_torch.models import charlm, las
 from ss_asr_tpu_torch.train import losses
 from ss_asr_tpu_torch.train.solver import Solver, joint_named_parameters, make_optim
-from ss_asr_tpu_torch.utils import checkpoint as ckpt
 from ss_asr_tpu_torch.vocab import SOS_TKN, Mapper
 
 
@@ -38,7 +42,7 @@ class CHARLMTrainer(Solver):
         c = self.config["char_lm"]
         self.chunk_size = c["chunk_size"]
         self.tf_rate = c["mdl"].get("tf_rate", 0.9)
-        self.ds = LMDataset(c["train_index"], self.chunk_size)
+        self.ds = LMDataset(c["train_index"], self.chunk_size, host_shard=self.host_shard)
         self.mapper = Mapper()
 
     def set_model(self):
@@ -53,6 +57,7 @@ class CHARLMTrainer(Solver):
         self.models = {"char_lm": self.lm}
         self.optim = make_optim(joint_named_parameters(self.models), c["opt"])
         self.restore_opt(self.optim, self.opt_ckppath, None)
+        self.broadcast_state([self.lm], [self.optim])
 
     def params_tree(self):
         return convert.charlm_params_from_state(self.lm.state_dict())
@@ -76,10 +81,17 @@ class CHARLMTrainer(Solver):
 
     def step(self, y: torch.Tensor, tf_draws=None, gumbel=None):
         """One update on a chunk batch already on the device -> (loss,
-        logits), both detached."""
+        logits), both detached.  Without draws they are the global batch's
+        (``Solver``)."""
+        if tf_draws is None:
+            Bg, rows = self.global_rows(y.shape[0])
+            tf_draws, gumbel = self.draws(y.shape[1], Bg, self.tf_rate)
+            if rows is not None:
+                gumbel = gumbel[:, rows].contiguous()
         self.zero_grad()
         loss, logits = self.loss_of(y, tf_draws, gumbel)
         loss.backward()
+        (loss,) = self.dp_average(self.optim.params.values(), loss.detach())
         self.optim.step()
         return loss.detach(), logits.detach()
 
@@ -111,7 +123,7 @@ class CHARLMTrainer(Solver):
                     self.lg.text("text_generate", self.generate(), self.tr.step)
                     if loss_by_char < self.tr.get_best():
                         self.tr.set_best(loss_by_char)
-                        ckpt.save_pytree(self.best_ckppath, self.params_tree())
+                        self.save_tree(self.best_ckppath, self.params_tree())
 
                 if self.tr.step % self.save_step == 0:
                     self.verbose(f"Model saved at step {self.tr.step}")

@@ -1,6 +1,6 @@
 """Speech-autoencoder training that also updates the ASR listener.
 
-Port of ``ss_asr_tpu/train/sae_trainer.py`` on one device: smooth-L1
+Port of ``ss_asr_tpu/train/sae_trainer.py``: smooth-L1
 reconstruction of the input fbank from [listener frames | global conv
 encoding]; the optimizer spans the SAE plus the ASR encoder (the speller is
 in the parameter set and never moves).  The loss follows the reference's
@@ -11,6 +11,12 @@ frames (zeros beyond each sample's own length included).  The checkpoint is
 ``sae.listener_lr_scale`` damps the listener's co-update (an update scale);
 the listener-saturation telemetry (share of valid encoder activations with
 |h| > 0.99) is logged at least once per epoch and warns once.
+
+Data parallel (``Solver``): a rank's shard of the index, one all-reduce of
+the gradients, the loss, the saturation and the batch norms' new running
+statistics.  The batch norm normalises with the LOCAL batch's statistics
+and only its new running statistics are averaged, as the JAX package's
+``pmean(new_bn)`` does (not a synchronised batch norm).
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ class SAETrainer(Solver):
         c = self.config["sae"]
         tb, lb = c.get("t_bucket", 128), c.get("l_bucket", 16)
         self.train_ds = ASRDataset(c["train_index"], batch_size=self.train_batch_size,
-                                   t_bucket=tb, l_bucket=lb)
+                                   t_bucket=tb, l_bucket=lb, host_shard=self.host_shard)
         self.valid_ds = ASRDataset(c["valid_index"], batch_size=self.valid_batch_size,
                                    t_bucket=tb, l_bucket=lb)
         self.mapper = self.train_ds.mapper
@@ -74,6 +80,7 @@ class SAETrainer(Solver):
         scales = [(prefix_mask(names, (("asr", "encoder"),)), lr_scale)] if lr_scale != 1.0 else None
         self.optim = make_optim(named, c, mask=prefix_mask(names, TRAINED), update_scales=scales)
         self.restore_opt(self.optim, self.opt_ckppath, TRAINED)
+        self.broadcast_state(self.models.values(), [self.optim])
 
     def _placed(self, b):
         return (torch.from_numpy(b.x).to(self.device), torch.from_numpy(b.x_lens).to(self.device))
@@ -99,6 +106,13 @@ class SAETrainer(Solver):
         self.zero_grad()
         loss, _, sat = self.recon_loss(x, x_lens, True)
         loss.backward()
+        if self.mesh is not None:
+            stats = [b for b in self.models["sae"].buffers() if b.is_floating_point()]
+            loss, sat, *new = self.dp_average(self.optim.params.values(), loss.detach(), sat,
+                                              *stats)
+            with torch.no_grad():
+                for b, v in zip(stats, new):
+                    b.copy_(v)
         self.optim.step()
         return loss.detach(), sat
 
@@ -109,7 +123,11 @@ class SAETrainer(Solver):
         sat_every = max(min(self.logging_step, len(self.train_ds)), 1)
         for epoch in range(self.n_epochs):
             self.verbose(f"Starting epoch {epoch + 1} out of {self.n_epochs}")
+            self.train_ds.set_epoch(epoch)
+            n_steps = self.global_min_batches(len(self.train_ds))
             for b_ind, b in enumerate(self.train_ds.iter_batches()):
+                if b_ind >= n_steps:
+                    break
                 self.verbose(f"Batch: {b_ind}/{len(self.train_ds)}, global step: {self.tr.step}",
                              progress=True)
                 loss, sat = self.step(*self._placed(b))
@@ -162,19 +180,18 @@ class SAETrainer(Solver):
 
         self.lg.scalar("eval_loss", avg_loss, self.tr.step)
         self.lg.scalar("eval_listener_saturation", avg_sat, self.tr.step)
-        if avg_loss < self.tr.get_best():
+        if self.improved(avg_loss):
             self.tr.set_best(avg_loss)
             self.verbose(f"Best validation loss : {avg_loss:.4f} @ global step {self.tr.step}")
-            ckpt.save_pytree(self.best_ckppath, self.sae_tree())
+            self.save_tree(self.best_ckppath, self.sae_tree())
         else:
             self.verbose(f"Validation metric worse : ({avg_loss:.4f} vs. "
                          f"{self.tr.get_best():.4f})")
 
     def save_all(self):
-        ckpt.save_pytree(self.ckppath, self.sae_tree())
-        ckpt.save_pytree(self.asrpath_out, self.tree("asr"))
-        ckpt.save_opt_state(self.opt_ckppath,
-                            convert.opt_state_leaves(self.optim, self.models, TRAINED))
+        self.save_tree(self.ckppath, self.sae_tree())
+        self.save_tree(self.asrpath_out, self.tree("asr"))
+        self.save_opt(self.opt_ckppath, convert.opt_state_leaves(self.optim, self.models, TRAINED))
 
     def close(self):
         self.verbose(f"Finished training! Saving most recent model at step {self.tr.step} "

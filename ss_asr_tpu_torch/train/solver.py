@@ -1,16 +1,27 @@
 """Solver base: config handling, checkpoint / tracker / logger plumbing.
 
-Port of ``ss_asr_tpu/train/solver.py`` for one device: per-module
-checkpoint paths under ``<ckpdir>/<name>/`` (npz, in the JAX package's tree
-layout, so either package resumes from the other's files), a resumable
-``tracker.json``, per-module metric streams, the ``set_if_exists``
-defaults, the parameter tree check on load, and the ``genpath`` in / out
-checkpoint-relay helper of the trainers that share parameters.  Randomness comes from one
+Port of ``ss_asr_tpu/train/solver.py``: per-module checkpoint paths under
+``<ckpdir>/<name>/`` (npz, in the JAX package's tree layout, so either
+package resumes from the other's files), a resumable ``tracker.json``,
+per-module metric streams, the ``set_if_exists`` defaults, the parameter
+tree check on load, and the ``genpath`` in / out checkpoint-relay helper of
+the trainers that share parameters.  Randomness comes from one
 ``torch.Generator`` seeded with ``seed + crc32(module_id) % 2**16`` (the
 JAX package's key offset; the streams themselves differ from
-``jax.random``'s).  A ``parallel`` section asking for more than one device
-(ROADMAP item 10) and the orbax checkpoint backend (left out of the port)
-raise.
+``jax.random``'s).  The orbax checkpoint backend is left out of the port
+and raises.
+
+Data parallelism (``parallel: {n_data: N | auto}``, N ranks launched by
+``torchrun``, ``parallel/mesh.py``): each rank reads a strided shard of the
+training index (``host_shard``) and holds its own rows; a train step
+averages the gradients and the loss over the ranks in one all-reduce
+(``dp_average``) before the optimizer's step; the random draws of a step
+are those of the GLOBAL batch, from the same generator on every rank, each
+rank keeping its own rows (``global_rows``), so that a step equals one
+process on the joined batch and the ranks' generators stay in lockstep.
+Rank 0 alone writes ``tracker.json`` and the checkpoints, with a barrier
+after each write; the other ranks log under ``rank{r}``.  ``n_data: 1`` (or
+no section) is the single-process path, unchanged.
 """
 
 from __future__ import annotations
@@ -23,12 +34,40 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ss_asr_tpu_torch.parallel import mesh as pmesh
 from ss_asr_tpu_torch.train.optim import Optimizer
 from ss_asr_tpu_torch.utils import checkpoint as ckpt
 from ss_asr_tpu_torch.utils.logging import MetricLogger
 from ss_asr_tpu_torch.utils.tracker import Tracker
 
-MULTI_DEVICE_TODO = "ROADMAP.md port item 10 (data-parallel serving and training)"
+
+def make_solver_mesh(config: dict, device) -> Optional[pmesh.Mesh]:
+    """The data axis the ``parallel`` section asks for, over the ranks'
+    devices; None for one rank (``n_data: 1``, the default, or no section).
+    ``n_data: auto`` is the number of ranks; any other count must equal it:
+    in a single process a count above 1 raises, saying to launch that many
+    ranks.  ``n_model`` > 1 (tensor parallelism) is left out of the port."""
+    par = config.get("parallel") or {}
+    if int(par.get("n_model", 1)) != 1:
+        raise NotImplementedError(pmesh.TP_LEFT_OUT)
+    world = pmesh.process_count()
+    n_data = par.get("n_data", 1)
+    n_data = world if n_data in ("auto", -1) else int(n_data)
+    if n_data != world:
+        if world == 1:
+            raise ValueError(f"parallel: n_data {n_data} asks for {n_data} data-parallel ranks, "
+                             f"but this process runs alone: launch {n_data} ranks, "
+                             f"{pmesh.LAUNCH.format(n=n_data)}, with parallel: "
+                             "{distributed: true}")
+        raise ValueError(f"parallel: n_data {n_data} under {world} ranks: set n_data: auto or "
+                         f"{world}")
+    if world == 1:
+        return None
+    import torch.distributed as dist
+
+    devices = [None] * world
+    dist.all_gather_object(devices, str(device))
+    return pmesh.Mesh(devices)
 
 
 def make_optim(params, opt: dict, **kw) -> Optimizer:
@@ -68,22 +107,30 @@ class Solver:
         self.module_id = module_id
         self.device = torch.device(device)
 
-        par = config.get("parallel") or {}
-        n_model, n_data = int(par.get("n_model", 1)), par.get("n_data", 1)
-        if n_data in ("auto", -1):  # every visible device, as the JAX package reads it
-            n_data = torch.cuda.device_count() // n_model if self.device.type == "cuda" else 1
-        if (int(n_data) > 1 or n_model != 1 or par.get("host_shard") is not None
-                or par.get("distributed")):
-            raise NotImplementedError(f"parallel: {par} asks for more than one device; "
-                                      f"see {MULTI_DEVICE_TODO}")
         if config.get("checkpoint_backend", "npz") != "npz":
             raise NotImplementedError("checkpoint_backend: the port keeps npz checkpoints; the "
                                       "orbax backend is left out of it (ROADMAP.md)")
+        self.mesh = make_solver_mesh(config, self.device)
+        self.rank = pmesh.process_index()
+        hs = (config.get("parallel") or {}).get("host_shard")
+        if hs is not None:  # a rank's shard by hand: how one process exercises the path
+            self.host_shard: Optional[Tuple[int, int]] = (int(hs[0]), int(hs[1]))
+        elif self.mesh is not None:
+            self.host_shard = (self.rank, pmesh.process_count())
+        else:
+            self.host_shard = None
 
         self.ckpdir = os.path.join(paras.ckpdir, paras.name)
         os.makedirs(self.ckpdir, exist_ok=True)
-        self.tr = Tracker(os.path.join(self.ckpdir, "tracker.json"), module_id)
-        self.lg = MetricLogger(os.path.join(paras.logdir, paras.name, module_id), module_id)
+        # rank 0 alone writes tracker.json and the checkpoints: ranks sharing one ckpdir
+        # must not race on the same files (each keeps the state in memory)
+        self.is_writer = self.rank == 0
+        self.tr = Tracker(os.path.join(self.ckpdir, "tracker.json"), module_id,
+                          writer=self.is_writer)
+        log_dir = os.path.join(paras.logdir, paras.name, module_id)
+        if not self.is_writer:
+            log_dir = os.path.join(log_dir, f"rank{self.rank}")
+        self.lg = MetricLogger(log_dir, module_id)
         self.ckppath = os.path.join(self.ckpdir, module_id + ".npz")
         self.best_ckppath = os.path.join(self.ckpdir, module_id + "_best.npz")
         self.opt_ckppath = os.path.join(self.ckpdir, module_id + "_opt.npz")
@@ -122,6 +169,11 @@ class Solver:
         self.verbose(f"Batch sizes: [Train {self.train_batch_size}], "
                      f"[Validation {self.valid_batch_size}], [Testing {self.test_batch_size}]")
         self.verbose(f"Device: {self.device}")
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            self.verbose(f"Data parallel: rank {self.rank} of {len(self.mesh.devices)} "
+                         f"({dist.get_backend()}), devices {[str(d) for d in self.mesh.devices]}")
         self.verbose("---------------------")
 
     def next_seed(self) -> int:
@@ -200,16 +252,93 @@ class Solver:
         assert len(p) == 2
         return tuple(p)
 
+    def save_tree(self, path: str, tree: Dict) -> None:
+        """Rank 0 writes the parameter tree; every rank waits at a barrier
+        after it, so that no rank reads a checkpoint before it is whole
+        (the Seed chain's relays)."""
+        if self.is_writer:
+            ckpt.save_pytree(path, tree)
+        pmesh.barrier()
+
+    def save_opt(self, path: str, leaves: List[np.ndarray]) -> None:
+        """Rank 0 writes the optimizer's leaves, then a barrier (as ``save_tree``)."""
+        if self.is_writer:
+            ckpt.save_opt_state(path, leaves)
+        pmesh.barrier()
+
     def save_state(self, tree: Dict, opt_leaves: Optional[List[np.ndarray]] = None) -> None:
         """Save params (and optimizer leaves) to the default paths; with
         ``keep_snapshots: K`` also a step-stamped snapshot, pruned to the K
         most recent."""
-        ckpt.save_pytree(self.ckppath, tree)
+        self.save_tree(self.ckppath, tree)
         if opt_leaves is not None:
-            ckpt.save_opt_state(self.opt_ckppath, opt_leaves)
+            self.save_opt(self.opt_ckppath, opt_leaves)
         if self.keep_snapshots > 0:
-            ckpt.save_pytree(ckpt.snapshot_path(self.ckpdir, self.module_id, self.tr.step), tree)
-            ckpt.prune_snapshots(self.ckpdir, self.module_id, self.keep_snapshots)
+            self.save_tree(ckpt.snapshot_path(self.ckpdir, self.module_id, self.tr.step), tree)
+            if self.is_writer:
+                ckpt.prune_snapshots(self.ckpdir, self.module_id, self.keep_snapshots)
+
+    # -- data parallelism (parallel/mesh.py); each a no-op for one rank -----
+    @property
+    def n_data(self) -> int:
+        return 1 if self.mesh is None else len(self.mesh.devices)
+
+    def broadcast_state(self, modules, optims) -> None:
+        """Rank 0's parameters, buffers and optimizer slots over every rank's,
+        once the models are built (every rank starts from the same seed or
+        file; this makes sure)."""
+        if self.mesh is None:
+            return
+        ts = [t for m in modules for t in list(m.parameters()) + list(m.buffers())
+              if t.is_floating_point()]
+        for o in optims:
+            ts += [t for slot in o.state.values() for t in slot.values()]
+            ts += list(o.acc_grads.values())
+        pmesh.broadcast_(ts)
+
+    def dp_average(self, params, *extras):
+        """The data-parallel step's one all-reduce: every gradient of
+        ``params`` and each of ``extras`` averaged over the ranks (the
+        gradients in place) -> the averaged extras; unchanged for one rank."""
+        if self.mesh is None:
+            return extras
+        return tuple(pmesh.average_gradients(params, extras))
+
+    def global_rows(self, B: int) -> Tuple[int, Optional[slice]]:
+        """(the global batch, this rank's rows of it) for a local batch of
+        ``B`` rows: the random draws are drawn for the global batch and
+        each rank keeps its rows; (B, None) for one rank."""
+        if self.mesh is None:
+            return B, None
+        return B * self.n_data, slice(self.rank * B, (self.rank + 1) * B)
+
+    def global_width(self, n: int) -> int:
+        """The largest ``n`` over the ranks (a step's decode length, which
+        sets how many draws it takes)."""
+        if self.mesh is None:
+            return n
+        return pmesh.all_reduce_int(n, "max", self.device)
+
+    def improved(self, value: float) -> bool:
+        """Whether a validation value beats the best so far, decided alike on
+        every rank (each validates the whole corpus; the save that follows
+        holds a barrier)."""
+        better = value < self.tr.get_best()
+        if self.mesh is None:
+            return better
+        return bool(pmesh.all_reduce_int(int(better), "max", self.device))
+
+    def global_min_batches(self, n: int) -> int:
+        """The number of train steps EVERY rank can take this epoch: strided
+        shards can differ by a row and pack into different batch counts, and
+        a rank entering an all-reduce the others never reach would hang."""
+        if self.mesh is None:
+            return n
+        m = pmesh.all_reduce_int(n, "min", self.device)
+        if m < n:  # these batches rotate with set_epoch: no row is skipped forever
+            self.verbose(f"data-parallel step cap: skipping {n - m} of {n} local batches this "
+                         "epoch (other ranks have fewer)")
+        return m
 
     def close(self) -> None:
         return None

@@ -1,6 +1,6 @@
 """Text-autoencoder training that also updates the shared ASR subtrees.
 
-Port of ``ss_asr_tpu/train/tae_trainer.py`` on one device.  One optimizer
+Port of ``ss_asr_tpu/train/tae_trainer.py``.  One optimizer
 spans the whole TAE plus the ASR's embed / attention / decoder / char_trans
 (``SHARED_ASR_SUBTREES``); the listener is in the parameter set (its
 gradient, which is zero, passes the NaN check) and never moves.  Both the TAE
@@ -9,6 +9,10 @@ and the mutated ASR are checkpointed (``tae.npz``, the ASR relay, and
 
 Quirk preserved: the loss compares decode step t's logits with ``y[t]``
 (unshifted, unlike the ASR trainer's ``y[t + 1]``); position 0 is pad.
+
+Data parallel as ``ASRTrainer`` (``Solver``): a rank's shard of the
+index, the targets padded to the longest over the ranks, the global
+batch's draws, one all-reduce of the gradients and the loss.
 
 On the card the text encoder runs kernels K2 / K3 and the decode K9 / K10
 over a memory of S = noised-text length.
@@ -27,7 +31,6 @@ from ss_asr_tpu_torch.models import text_autoencoder as tae_mod
 from ss_asr_tpu_torch.train import losses
 from ss_asr_tpu_torch.train.optim import prefix_mask
 from ss_asr_tpu_torch.train.solver import Solver, joint_named_parameters, make_optim
-from ss_asr_tpu_torch.utils import checkpoint as ckpt
 
 #: ASR subtrees the TAE trainer updates
 SHARED_ASR_SUBTREES = (("asr", "embed"), ("asr", "attention"), ("asr", "decoder"),
@@ -43,7 +46,8 @@ class TAETrainer(Solver):
         c = self.config["tae"]
         lb = c.get("l_bucket", 16)
         self.train_ds = ASRDataset(c["train_index"], batch_size=self.train_batch_size,
-                                   text_only=True, drop_rate=c["drop_rate"], l_bucket=lb)
+                                   text_only=True, drop_rate=c["drop_rate"], l_bucket=lb,
+                                   host_shard=self.host_shard)
         self.valid_ds = ASRDataset(c["valid_index"], batch_size=self.valid_batch_size,
                                    text_only=True, drop_rate=c["drop_rate"], l_bucket=lb)
         self.mapper = self.train_ds.mapper
@@ -63,6 +67,7 @@ class TAETrainer(Solver):
         named = joint_named_parameters(self.models)
         self.optim = make_optim(named, c, mask=prefix_mask([n for n, _ in named], TRAINED))
         self.restore_opt(self.optim, self.opt_ckppath, TRAINED)
+        self.broadcast_state(self.models.values(), [self.optim])
 
     def _placed(self, b):
         return tuple(torch.from_numpy(a).to(self.device).long()
@@ -82,18 +87,34 @@ class TAETrainer(Solver):
         return losses.masked_ce_per_utt(logits, y, y), logits
 
     def step(self, y, y_noised, noise_lens, tf_draws=None, gumbel=None):
-        """One update on a batch already on the device -> (loss, logits), detached."""
+        """One update on a batch already on the device -> (loss, logits),
+        detached.  Without draws they are the global batch's (``Solver``)."""
+        L_own = y.shape[1]
+        if tf_draws is None:
+            L = self.global_width(L_own)
+            if L > L_own:  # pad columns: masked out of the loss
+                y = F.pad(y, (0, L - L_own))
+            Bg, rows = self.global_rows(y.shape[0])
+            tf_draws, gumbel = las.draw_scheduled_sampling(
+                L, Bg, self.asr_cfg.tf_rate, self.asr_cfg, self.generator, device=self.device)
+            if rows is not None:
+                gumbel = gumbel[:, rows].contiguous()
         self.zero_grad()
         loss, logits = self.loss_of(y, y_noised, noise_lens, tf_draws, gumbel)
         loss.backward()
+        (loss,) = self.dp_average(self.optim.params.values(), loss.detach())
         self.optim.step()
-        return loss.detach(), logits.detach()
+        return loss.detach(), logits.detach()[:, :L_own]
 
     def exec(self):
         self.verbose(f"Training set total {len(self.train_ds)} batches")
         for epoch in range(self.n_epochs):
             self.verbose(f"Starting epoch {epoch + 1} out of {self.n_epochs}")
+            self.train_ds.set_epoch(epoch)
+            n_steps = self.global_min_batches(len(self.train_ds))
             for b_ind, b in enumerate(self.train_ds.iter_batches()):
+                if b_ind >= n_steps:
+                    break
                 self.verbose(f"Batch: {b_ind}/{len(self.train_ds)}, global step: {self.tr.step}",
                              progress=True)
                 loss, _ = self.step(*self._placed(b))
@@ -125,19 +146,18 @@ class TAETrainer(Solver):
                 self.lg.text(f"eval_text{i}", f"{labels[i]} |vs.| {predicts[i]}", self.tr.step)
 
         self.lg.scalar("eval_loss", avg_loss, self.tr.step)
-        if avg_loss < self.tr.get_best():
+        if self.improved(avg_loss):
             self.tr.set_best(avg_loss)
             self.verbose(f"Best validation loss : {avg_loss:.4f} @ global step {self.tr.step}")
-            ckpt.save_pytree(self.best_ckppath, self.tree("tae"))
+            self.save_tree(self.best_ckppath, self.tree("tae"))
         else:
             self.verbose(f"Validation metric worse : ({avg_loss:.4f} vs. "
                          f"{self.tr.get_best():.4f})")
 
     def save_all(self):
-        ckpt.save_pytree(self.ckppath, self.tree("tae"))
-        ckpt.save_pytree(self.asrpath_out, self.tree("asr"))
-        ckpt.save_opt_state(self.opt_ckppath,
-                            convert.opt_state_leaves(self.optim, self.models, TRAINED))
+        self.save_tree(self.ckppath, self.tree("tae"))
+        self.save_tree(self.asrpath_out, self.tree("asr"))
+        self.save_opt(self.opt_ckppath, convert.opt_state_leaves(self.optim, self.models, TRAINED))
 
     def close(self):
         self.verbose(f"Finished training! Saving most recent model at step {self.tr.step} "

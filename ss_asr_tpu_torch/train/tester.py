@@ -113,12 +113,13 @@ class ASRTester(Solver):
             "cer": _mean_err(results, refs, "char"),
         }
         out_path = os.path.join(self.ckpdir, self.decode_file + ".txt")
-        with open(out_path, "w", encoding="utf-8") as f:
-            for hyp, ref in zip(results, refs):
-                f.write(f"{hyp}\t{ref}\n")
-        with open(os.path.join(self.ckpdir, self.decode_file + "_metrics.json"), "w",
-                  encoding="utf-8") as f:
-            json.dump(self.metrics, f, indent=1)
+        if self.is_writer:  # every rank decodes the whole test set; rank 0 writes it
+            with open(out_path, "w", encoding="utf-8") as f:
+                for hyp, ref in zip(results, refs):
+                    f.write(f"{hyp}\t{ref}\n")
+            with open(os.path.join(self.ckpdir, self.decode_file + "_metrics.json"), "w",
+                      encoding="utf-8") as f:
+                json.dump(self.metrics, f, indent=1)
         for k in ("acc", "wer", "cer"):
             self.lg.scalar(f"test_{k}", self.metrics[k], self.tr.step)
         self.verbose(f"Decoded {len(results)} utterances -> {out_path} | "

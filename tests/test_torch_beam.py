@@ -8,7 +8,8 @@ kernel ``beam_device_pallas`` in interpret mode: tokens, parents, done
 flags and hypothesis lengths exactly, final scores within 1e-5 (float32
 sums of up to a dozen log-probs, taken in another order).  The backtracked
 transcripts (best and n-best, with and without length normalisation) must
-be equal.
+be equal, under both values of ``early_exit`` (``False`` runs all
+``max_steps``, as JAX's fixed-trip scan does).
 """
 
 import jax
@@ -54,12 +55,13 @@ def _inputs(rng, lens, T=16):
     return x, np.asarray(lens, np.int32)
 
 
-def _port_frontier(model, x, lens, K, T, lm=None, lm_weight=0.0):
+def _port_frontier(model, x, lens, K, T, lm=None, lm_weight=0.0, early_exit=True):
     with torch.inference_mode():
         enc_h, enc_lens = las.listener_apply(model.encoder, torch.from_numpy(x),
                                              torch.from_numpy(lens))
         comp_h = las.attention_precompute(model.attention, enc_h)
-        out = beam_device(model, enc_h, comp_h, enc_lens, K, T, lm, lm_weight)
+        out = beam_device(model, enc_h, comp_h, enc_lens, K, T, lm, lm_weight,
+                          early_exit=early_exit)
     return [o.numpy() for o in out]
 
 
@@ -130,6 +132,41 @@ def test_beam_decode_and_nbest_match_jax(rng, length_norm, use_lm):
                                    lm_params=jlm if use_lm else None, lm_cfg=LCFG, n_best=3,
                                    **kw)
     got = beam.beam_decode_nbest(model, xt, lt, lm=lm if use_lm else None, n_best=3, **kw)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[2], want[2], rtol=0, atol=SCORE_TOL)
+
+
+@pytest.mark.parametrize("early_exit", [True, False], ids=["early_exit", "fixed_trip"])
+@pytest.mark.parametrize("use_lm", [False, True], ids=["beam", "beam+lm"])
+def test_early_exit_keyword_matches_jax(rng, monkeypatch, early_exit, use_lm):
+    """``early_exit=`` as JAX takes it: ``True`` stops once every beam is
+    done, ``False`` runs all ``max_steps`` (the speller steps counted); the
+    frontier, ``beam_decode`` and ``beam_decode_nbest`` equal JAX's under
+    the same value."""
+    jp, model, jlm, lm = _models(5, eos_bias=2.5)
+    x, xl = _inputs(rng, [16, 12])
+    K, T, w = 3, 12, (0.5 if use_lm else 0.0)
+    port_lm, jax_lm = (lm, jlm) if use_lm else (None, None)
+    calls = []
+    step = las.speller_step
+    monkeypatch.setattr(las, "speller_step", lambda *a: (calls.append(1), step(*a))[1])
+    got = _port_frontier(model, x, xl, K, T, port_lm, w, early_exit=early_exit)
+    n_steps = len(calls) - 1  # the last call charges the still-open beams' EOS
+    assert n_steps == T if not early_exit else 0 < n_steps < T
+    want = jbeam._beam_device(jp, JCFG, jnp.asarray(x), jnp.asarray(xl), K, T, jax_lm, LCFG, w,
+                              early_exit=early_exit)
+    _assert_frontier_equal(got, want)
+    kw = dict(beam_size=K, max_steps=T, lm_weight=w, early_exit=early_exit)
+    xt, lt = torch.from_numpy(x), torch.from_numpy(xl)
+    want_t, want_l = jbeam.beam_decode(jp, JCFG, jnp.asarray(x), jnp.asarray(xl),
+                                       lm_params=jax_lm, lm_cfg=LCFG, **kw)
+    got_t, got_l = beam.beam_decode(model, xt, lt, lm=port_lm, **kw)
+    np.testing.assert_array_equal(got_t, want_t)
+    np.testing.assert_array_equal(got_l, want_l)
+    want = jbeam.beam_decode_nbest(jp, JCFG, jnp.asarray(x), jnp.asarray(xl), lm_params=jax_lm,
+                                   lm_cfg=LCFG, n_best=2, **kw)
+    got = beam.beam_decode_nbest(model, xt, lt, lm=port_lm, n_best=2, **kw)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_allclose(got[2], want[2], rtol=0, atol=SCORE_TOL)

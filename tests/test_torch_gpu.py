@@ -1284,3 +1284,77 @@ def test_pseudolabel_on_the_card(cuda, tmp_path):
     assert out["cuda"][1] == out["cpu"][1] and out["cuda"][0]["n_kept"] == 7
     assert all(len(t) > 2 for t in out["cuda"][1])  # "<" + characters + ">"
     assert out["cuda"][0]["rejected_low_conf"] == out["cpu"][0]["rejected_low_conf"] == 0
+
+
+# --------------------------------------------------------------------------
+# data parallelism and mesh serving on the card
+
+
+def test_dp_step_on_the_card_matches_one_process(cuda, tmp_path):
+    """Two ranks sharing the card under gloo (tests/torch_dp_workers.py)
+    against one process on the joined batch, tf 0.9 (the global batch's
+    draws): losses and parameters within 1e-5 relative, the ranks
+    bit-equal, every rank launching K2, K3, K9 and K10."""
+    import torch_dp_workers as workers
+
+    mdl = {"encoder_state_size": 32, "mlp_out_size": 16, "decoder_state_size": 32,
+           "tf_rate": 0.9, "feature_dim": 8}
+    config = {"asr": {"opt": {"type": "Adadelta", "learning_rate": 1.0}, "mdl": mdl}}
+    rng = np.random.default_rng(7)
+    batches = []
+    for _ in range(2):
+        x = (0.5 * rng.standard_normal((8, 32, 8))).astype(np.float32)
+        xl = rng.integers(16, 33, size=8).astype(np.int32)
+        y = np.zeros((8, 9), np.int64)
+        for i, k in enumerate(rng.integers(2, 8, size=8)):
+            y[i, 1:k + 1] = rng.integers(3, VOCAB_SIZE, size=k)
+            y[i, k + 1] = EOS_ID
+        batches.append((x, xl, y))
+    tree = convert.init_asr_numpy(3, las.ASRConfig(**mdl))
+    from ss_asr_tpu_torch.train.asr_trainer import ASRTrainer
+    from ss_asr_tpu_torch.train.solver import make_paras
+    from ss_asr_tpu_torch.utils.checkpoint import save_pytree
+
+    for name in ("dp", "one"):
+        save_pytree(str(tmp_path / "result" / name / "asr.npz"), tree)
+    r0, r1 = workers.run_ranks(workers.asr_steps, 2, tmp_path / "ranks",
+                               [({**config, "parallel": {"n_data": "auto"}}, str(tmp_path), "dp",
+                                 batches)], device="cuda")
+    t = ASRTrainer(config, make_paras("one", str(tmp_path / "runs"), str(tmp_path / "result"), 1,
+                                      False), device="cuda")
+    t.set_model()
+    losses = [float(t.step(*(torch.from_numpy(a).to(cuda) for a in b))[0]) for b in batches]
+    (l0, tree0, opt0, launched), (l1, tree1, opt1, _) = r0[0], r1[0]
+    assert l0 == l1
+    for a, b in zip(convert.tree_leaves(tree0) + opt0, convert.tree_leaves(tree1) + opt1):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(l0, losses, rtol=1e-5)
+    for a, b in zip(convert.tree_leaves(tree0), convert.tree_leaves(t.params_tree())):
+        err = np.abs(a.astype(np.float64) - b).max(initial=0.0)
+        assert err <= 1e-7 or np.linalg.norm(a - b) <= 1e-5 * np.linalg.norm(b)
+    assert all(launched[k] >= 2 for k in ("lstm_fwd", "lstm_bwd", "spell_fwd", "spell_bwd"))
+
+
+@pytest.mark.parametrize("kw,kernel", [({"beam_size": 1}, "greedy_decode"),
+                                       ({"beam_size": 1, "lm_weight": 0.5}, "greedy_decode_lm"),
+                                       ({"beam_size": 3, "lm_weight": 0.5}, "beam_decode_lm")],
+                         ids=["greedy", "greedy+lm", "beam3+lm"])
+def test_mesh_transcriber_on_the_card_matches_one_device(cuda, kw, kernel):
+    """``Transcriber(mesh=)`` over [cuda, cuda] against the single device,
+    by the smoke's near-tie rule (``chip_smoke.mesh_matches_single``), each
+    shard launching its decode kernel."""
+    import chip_smoke
+    from ss_asr_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = las.ASRConfig(encoder_state_size=32, decoder_state_size=32, mlp_out_size=16)
+    model, lm = _models(cfg, 16, 11, cuda)
+    lm = lm if kw.get("lm_weight") else None
+    rng = np.random.default_rng(3)
+    sigs = [(0.1 * rng.standard_normal(n)).astype(np.float32) for n in (9000, 0, 22050, 15000, 4000)]
+    single = Transcriber(model, lm=lm, max_steps=chip_smoke.MAX_STEPS, sr=chip_smoke.SR, **kw)
+    meshed = Transcriber(model, lm=lm, max_steps=chip_smoke.MAX_STEPS, sr=chip_smoke.SR,
+                         mesh=make_mesh(devices=["cuda", "cuda"]), **kw)
+    before = kdec.LAUNCHES[kernel] if "greedy" in kernel else kbeam.LAUNCHES[kernel]
+    assert chip_smoke.mesh_matches_single(torch, kernel, single, meshed, sigs) <= 2
+    after = kdec.LAUNCHES[kernel] if "greedy" in kernel else kbeam.LAUNCHES[kernel]
+    assert after - before >= 3  # one for the single batch, one for each of the two shards

@@ -109,11 +109,13 @@ def test_transcribe_wav_matches_jax(ckpts, rng, tmp_path):
 
 
 def test_unported_paths_name_their_roadmap_item(ckpts, rng):
-    """Only mesh serving is left unported; the config's beam (the former
-    ROADMAP item 2) now decodes, equal to JAX."""
+    """Every path is ported: a mesh without a ``data`` axis is refused as
+    the JAX package refuses it (mesh serving itself: test_torch_serve_mesh.py),
+    a beam wider than the kernel's cap too, and the config's beam (the
+    former ROADMAP item 2) decodes, equal to JAX."""
     asr, lm = ckpts
     pt = api.Transcriber.from_checkpoint(asr, CONFIG, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md port item 10"):
+    with pytest.raises(ValueError, match="mesh needs a 'data' axis"):
         api.Transcriber(pt.model, mesh=object())
     with pytest.raises(ValueError, match="outside 1..16"):
         api.Transcriber(pt.model, beam_size=17)

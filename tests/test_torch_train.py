@@ -285,13 +285,24 @@ def test_keep_snapshots_prunes_to_the_newest(corpus, tmp_path):
     assert [s for s, _ in ckpt.list_snapshots(t.ckpdir, "asr")] == [1, 2]
 
 
-@pytest.mark.parametrize("par,refused", [({"n_data": 2}, True), ({"n_model": 2}, True),
-                                         ({"n_data": "auto"}, False)])
+@pytest.mark.parametrize("par,refused", [({"n_data": 2}, ValueError),
+                                         ({"n_model": 2}, NotImplementedError),
+                                         ({"n_data": "auto"}, None)])
 def test_more_than_one_device_is_refused(corpus, tmp_path, par, refused):
-    """``n_data: auto`` counts the visible devices: one CPU device trains."""
+    """One process asked for ``n_data: 2`` is told to launch 2 ranks;
+    tensor parallelism stays left out; ``n_data: auto`` counts the ranks:
+    one process trains alone (data parallelism: test_torch_dp.py)."""
     config = {**copy.deepcopy(corpus), "parallel": par}
-    if refused:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md port item 10"):
+    if refused is ValueError:
+        with pytest.raises(ValueError, match="launch 2 ranks"):
+            ASRTrainer(config, _paras(make_paras, tmp_path, "par"), device="cpu")
+    elif refused is NotImplementedError:
+        with pytest.raises(NotImplementedError, match="tensor parallelism"):
             ASRTrainer(config, _paras(make_paras, tmp_path, "par"), device="cpu")
     else:
-        assert ASRTrainer(config, _paras(make_paras, tmp_path, "par"), device="cpu").tr.step == 0
+        t = ASRTrainer(config, _paras(make_paras, tmp_path, "par"), device="cpu")
+        assert t.tr.step == 0 and t.mesh is None
+        t.load_data()
+        t.set_model()
+        t.exec()
+        assert t.tr.step == len(t.train_ds) > 0

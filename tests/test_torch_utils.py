@@ -106,3 +106,20 @@ def test_pyproject_names_the_ports_clis_and_extra():
     assert any(r.startswith("torch") for r in meta["optional-dependencies"]["torch"])
     assert all(not v.startswith("ss_asr_tpu_torch") for k, v in scripts.items()
                if not k.startswith("ss-asr-torch-"))
+
+
+def test_install_check_runs_every_torch_script(monkeypatch, capsys):
+    """``install_check`` covers every ``ss-asr-torch-*`` script of the TOML,
+    and says so, without installing, when setuptools is missing."""
+    import importlib.util
+
+    from ss_asr_tpu_torch import install_check
+
+    names = install_check.torch_scripts(str(ROOT / "pyproject.toml"))
+    scripts = tomllib.loads((ROOT / "pyproject.toml").read_text())["project"]["scripts"]
+    assert names == sorted(k for k in scripts if k.startswith("ss-asr-torch-")) and len(names) == 10
+    real = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec",
+                        lambda name, *a: None if name == "setuptools" else real(name, *a))
+    assert install_check.main([]) == 2
+    assert "setuptools is missing" in capsys.readouterr().out
