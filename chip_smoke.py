@@ -206,9 +206,26 @@ Phases, in order; any failure exits non-zero:
    (median of 5), then the HTTP server over the mesh Transcriber (default
    decode) with ``?detail=1&nbest=3`` and one ``/reload``.  A failed
    collective or a rank still running after 180 s fails the phase.
-13. One JSON line of kernels (launches on the paths above, error, kernel /
-   plain / library times, bound), the nvidia-smi line, and last the
-   contract line ``{"ok": true, "device": {...}}``.
+13. Tensor parallelism (``parallel: {n_data: D, n_model: M}``): (a) the
+   flagship ASR step on phase 12's batch (B = 32, tf 0.9) at (data, model)
+   = (1, 2), two ranks sharing the card under gloo, each running the whole
+   batch on the weights gathered from the two ranks' shards, 3 steps: the
+   ranks' gathered parameters bit-equal after every step, each rank
+   launching exactly K11 1, K2 4, K3 4, K9 1, K10 1 a step on the cluster
+   routes, the losses and updates held against phase 12's one process on
+   the same batch by the anchored rule, the step's wall beside that
+   process's and the bytes each rank gathered and reduced a step beside
+   what column-parallel input projections would move; (b) ``cli.train
+   ASRTrainer`` through ``torchrun --nproc-per-node 4`` at (2, 2) on 31
+   tone utterances: every rank logs the same losses, rank 0 alone writes
+   (saved every step), every rank resumes at the saved step, the
+   checkpoint's parameter and optimizer leaves full width and within 1e-5
+   relative of phase 12 (b)'s (its data axis reads the same rows and
+   draws), and the checkpoint decodes in a greedy ``Transcriber`` (its
+   launches counted).
+14. The smoke's wall time, one JSON line of kernels (launches on the paths
+   above, error, kernel / plain / library times, bound), the nvidia-smi
+   line, and last the contract line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -3214,10 +3231,11 @@ def run_ranks(fn, world, out_dir, *args, device=None, timeout=DP_RANK_TIMEOUT) -
     return out
 
 
-def dp_rank_step(rank, world, dev, config, tmp, wave, n, y):
-    """One rank of phase 12 (a): an ASRTrainer on this rank's rows of the
-    global batch (the frontend on the card from the waveforms, then the
-    step), DP_STEPS steps, a digest of the parameters after each and the
+def rank_steps(rank, world, dev, config, tmp, name, wave, n, y):
+    """One rank of phase 12 (a) or 13 (a): an ASRTrainer on its data
+    index's rows of the global batch (the frontend on the card from the
+    waveforms, then the step), DP_STEPS steps, a digest of the model's
+    (under tensor parallelism: the gathered) parameters after each and the
     launches of those steps; then DP_TIMED timed steps."""
     import hashlib
 
@@ -3228,29 +3246,31 @@ def dp_rank_step(rank, world, dev, config, tmp, wave, n, y):
     from ss_asr_tpu_torch.train.asr_trainer import ASRTrainer
     from ss_asr_tpu_torch.train.solver import make_paras
 
-    t = ASRTrainer(config, make_paras(name="dp_ranks", logdir=os.path.join(tmp, "runs"),
+    t = ASRTrainer(config, make_paras(name=name, logdir=os.path.join(tmp, "runs"),
                                       ckpdir=os.path.join(tmp, "result"), seed=SEED,
                                       verbose=False), device=str(dev))
     t.set_model()
-    b = wave.shape[0] // world
-    rows = slice(rank * b, (rank + 1) * b)
+    b = wave.shape[0] // t.n_data
+    rows = slice(t.data_index * b, (t.data_index + 1) * b)
     w, nn, yy = (torch.from_numpy(a[rows]).to(dev) for a in (wave, n, y))
+    named = dict(t.model.named_parameters())
 
     def step():
         with torch.no_grad():
             fb, fl = log_mel_fbank_batch(w, nn, SR)
         return t.step(fb, fl, yy)[0]
 
-    before = {k: p.detach().cpu().double() for k, p in t.optim.params.items()}
+    before = {k: named[k].detach().cpu().double() for k in t.optim.params}
     zero_launches()
     losses, digests = [], []
     for _ in range(DP_STEPS):
         losses.append(float(step()))
         digests.append(hashlib.sha256(b"".join(
-            p.detach().cpu().numpy().tobytes() for p in t.optim.params.values())).hexdigest())
+            p.detach().cpu().numpy().tobytes() for p in t.model.parameters())).hexdigest())
     launches = read_launches()
-    update = ({k: (p.detach().cpu().double() - before[k]).numpy()
-               for k, p in t.optim.params.items()} if rank == 0 else None)
+    update = ({k: (named[k].detach().cpu().double() - before[k]).numpy() for k in t.optim.params}
+              if rank == 0 else None)
+    comm = dict(t.tp.bytes) if t.tp is not None else None
     times = []
     for _ in range(DP_TIMED):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -3261,7 +3281,70 @@ def dp_rank_step(rank, world, dev, config, tmp, wave, n, y):
         times.append(start.elapsed_time(end))
     return {"losses": losses, "digests": digests, "launches": launches, "update": update,
             "times": times, "device": str(dev), "backend": dist.get_backend(),
-            "host_shard": t.host_shard, "mesh": str(t.mesh)}
+            "host_shard": t.host_shard, "mesh": str(t.mesh), "bytes": comm,
+            "shards": len(t.optim.shards)}
+
+
+def one_process_reference(torch, c, asr_tree, tmp, wave, n, y):
+    """One process on the whole batch, on the card, on the CPU and in
+    float64 (the plain versions), DP_STEPS steps each, then DP_TIMED timed
+    card steps: what phases 12 (a) and 13 (a) hold their ranks against.
+    Returns {"losses": [card, cpu, f64] lists, "updates": {name: (card,
+    cpu, f64) float64 host tensors}, "times": card ms}."""
+    from ss_asr_tpu_torch.ops.frontend import log_mel_fbank_batch
+
+    with torch.no_grad():
+        x, x_lens = log_mel_fbank_batch(wave, n, SR)
+    ts = [trainer(c, tmp, f"one_process_{tag}", asr_tree, dev)
+          for tag, dev in (("card", DEVICE), ("cpu", "cpu"), ("f64", "cpu"))]
+    ts[2].model.double()
+    float64_optim(ts[2].optim)
+    before = snapshot(torch, ts, lambda t: [t.optim])
+
+    def card_step():
+        with torch.no_grad():
+            fb, fl = log_mel_fbank_batch(wave, n, SR)
+        return ts[0].step(fb, fl, y)[0]
+
+    losses = [[float(card_step()) for _ in range(DP_STEPS)]]
+    for t in ts[1:]:
+        dt = next(t.model.parameters()).dtype
+        losses.append([float(t.step(x.cpu().to(dt), x_lens.cpu(), y.cpu())[0])
+                       for _ in range(DP_STEPS)])
+    updates = {name: tuple(t.optim.params[name].detach().cpu().double() - b[name]
+                           for t, b in zip(ts, before))
+               for name in sorted(ts[0].optim.mask)}
+    times = []
+    for _ in range(DP_TIMED):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        card_step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return {"losses": losses, "updates": updates, "times": times, "T": x.shape[1]}
+
+
+def against_reference(torch, tag, r0, ref):
+    """Rank 0's losses and updates against the one-process reference by the
+    anchored rule (error against float64 at most ANCHOR_RATIO times the CPU
+    float32 run's, or below STEP_FLOOR); fails naming each miss.  Returns
+    (the worst (rank, one process on the card, CPU) errors, its name)."""
+    worst, bad = (0.0, 0.0, 0.0, ""), []
+    card, cpu, f64 = ref["losses"]
+    rows = [(f"loss {s + 1}", torch.tensor(r0["losses"][s]), torch.tensor(card[s]),
+             torch.tensor(cpu[s]), torch.tensor(f64[s])) for s in range(DP_STEPS)]
+    rows += [(name, torch.from_numpy(r0["update"][name]), *ref["updates"][name])
+             for name in sorted(ref["updates"])]
+    for name, got, one, c, f in rows:
+        k, s1, cc = (rel_l2(torch, v.double(), f.double()) for v in (got, one, c))
+        worst = max(worst, (k, s1, cc, name))
+        if not k <= max(ANCHOR_RATIO * cc, STEP_FLOOR):
+            bad.append(f"{name} ({tag} {k:.3e}, one process on the card {s1:.3e}, CPU {cc:.3e})")
+    if bad:
+        fail(f"{tag} step: error against float64 above {ANCHOR_RATIO} x the CPU float32's and "
+             f"{STEP_FLOOR}: {bad}")
+    return worst, len(rows) - DP_STEPS
 
 
 def check_dp_step(torch, rng, config, asr_tree, tmp):
@@ -3273,10 +3356,8 @@ def check_dp_step(torch, rng, config, asr_tree, tmp):
     ranks' error at most ANCHOR_RATIO times the CPU float32 run's, or below
     STEP_FLOOR); each rank's launches (K11, K2, K3, K9, K10 on their
     cluster routes); then the step's wall beside the single process's.
-    Returns {path: launches}."""
-    import numpy as np
-
-    from ss_asr_tpu_torch.ops.frontend import log_mel_fbank_batch
+    Returns ({path: launches}, the batch and config, the one-process
+    reference), which phase 13 (a) reuses."""
     from ss_asr_tpu_torch.utils.checkpoint import save_pytree
 
     wave, n, y = train_batch(torch, rng)
@@ -3284,8 +3365,8 @@ def check_dp_step(torch, rng, config, asr_tree, tmp):
     c["asr"]["mdl"]["tf_rate"] = 0.9
     save_pytree(os.path.join(tmp, "result", "dp_ranks", "asr.npz"), asr_tree)
     t0 = time.perf_counter()
-    ranks = run_ranks(dp_rank_step, DP_RANKS, os.path.join(tmp, "dp_step_ranks"),
-                      {**c, "parallel": {"n_data": "auto"}}, tmp,
+    ranks = run_ranks(rank_steps, DP_RANKS, os.path.join(tmp, "dp_step_ranks"),
+                      {**c, "parallel": {"n_data": "auto"}}, tmp, "dp_ranks",
                       *(a.cpu().numpy() for a in (wave, n, y)))
     secs = time.perf_counter() - t0
     r0, r1 = ranks
@@ -3305,55 +3386,17 @@ def check_dp_step(torch, rng, config, asr_tree, tmp):
     require_cluster_route("DP step", launches)
 
     # one process on the joined batch: on the card, on the CPU and in float64
-    with torch.no_grad():
-        x, x_lens = log_mel_fbank_batch(wave, n, SR)
-    ts = [trainer(c, tmp, f"dp_single_{tag}", asr_tree, dev)
-          for tag, dev in (("card", DEVICE), ("cpu", "cpu"), ("f64", "cpu"))]
-    ts[2].model.double()
-    float64_optim(ts[2].optim)
-    before = snapshot(torch, ts, lambda t: [t.optim])
-
-    def card_step():
-        with torch.no_grad():
-            fb, fl = log_mel_fbank_batch(wave, n, SR)
-        return ts[0].step(fb, fl, y)[0]
-
-    losses = [[float(card_step()) for _ in range(DP_STEPS)]]
-    for t in ts[1:]:
-        dt = next(t.model.parameters()).dtype
-        losses.append([float(t.step(x.cpu().to(dt), x_lens.cpu(), y.cpu())[0])
-                       for _ in range(DP_STEPS)])
-    worst, bad = (0.0, 0.0, 0.0, ""), []
-    rows = [(f"loss {s + 1}", torch.tensor(r0["losses"][s]), torch.tensor(losses[0][s]),
-             torch.tensor(losses[1][s]), torch.tensor(losses[2][s])) for s in range(DP_STEPS)]
-    rows += [(name, torch.from_numpy(r0["update"][name]),
-              ts[0].optim.params[name].detach().cpu().double() - before[0][name],
-              ts[1].optim.params[name].detach().cpu().double() - before[1][name],
-              ts[2].optim.params[name].detach().cpu().double() - before[2][name])
-             for name in sorted(ts[0].optim.mask)]
-    for name, dp, card, cpu, ref in rows:
-        k, s1, cc = (rel_l2(torch, v.double(), ref.double()) for v in (dp, card, cpu))
-        worst = max(worst, (k, s1, cc, name))
-        if not k <= max(ANCHOR_RATIO * cc, STEP_FLOOR):
-            bad.append(f"{name} (DP {k:.3e}, one process on the card {s1:.3e}, CPU {cc:.3e})")
-    print(f"DP step B={TRAIN_B} = {DP_RANKS} x {TRAIN_B // DP_RANKS} T={x.shape[1]} L={TRAIN_L} "
+    ref = one_process_reference(torch, c, asr_tree, tmp, wave, n, y)
+    worst, n_updates = against_reference(torch, "DP", r0, ref)
+    losses = ref["losses"]
+    print(f"DP step B={TRAIN_B} = {DP_RANKS} x {TRAIN_B // DP_RANKS} T={ref['T']} L={TRAIN_L} "
           f"tf 0.9, {DP_STEPS} steps: losses DP {[f'{v:.6f}' for v in r0['losses']]}, one "
           f"process {[f'{v:.6f}' for v in losses[0]]}, float64 "
-          f"{[f'{v:.6f}' for v in losses[2]]}; the losses and the {len(rows) - DP_STEPS} "
+          f"{[f'{v:.6f}' for v in losses[2]]}; the losses and the {n_updates} "
           f"updates against float64: worst DP rel L2 {worst[0]:.3e} (one process on the card "
           f"{worst[1]:.3e}, CPU float32 {worst[2]:.3e}, {worst[3]}); ranks bit-equal after "
           f"every step", flush=True)
-    if bad:
-        fail(f"DP step: error against float64 above {ANCHOR_RATIO} x the CPU float32's and "
-             f"{STEP_FLOOR}: {bad}")
-    times = []
-    for _ in range(DP_TIMED):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        card_step()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+    times = ref["times"]
     dp_ms, one_ms = statistics.median(r0["times"]), statistics.median(times)
     print(f"DP step wall (CUDA events, median of {DP_TIMED}): {DP_RANKS} ranks sharing the card "
           f"{dp_ms:.3f} ms (rank 1 {statistics.median(r1['times']):.3f}; min "
@@ -3362,48 +3405,58 @@ def check_dp_step(torch, rng, config, asr_tree, tmp):
           f"all-reduce and two processes on one card, not a data-parallel gain; launches per "
           f"rank and step {({k: v // DP_STEPS for k, v in r0['launches'].items() if v})}",
           flush=True)
-    return {"dp step": launches}
+    return {"dp step": launches}, (c, wave, n, y), ref
 
 
 def check_dp_cli(config, split, tmp):
     """Phase 12 (b): ``cli.train ASRTrainer`` through ``python -m
     torch.distributed.run --nproc-per-node DP_RANKS`` with ``parallel:
-    {distributed: true, n_data: auto}`` on DP_CLI_UTTS of the tone corpus's
-    train split (odd: the step cap trims one rank's second batch), in one
-    ckpdir: both ranks log the same losses at the same steps, rank 0 alone
-    writes the checkpoints (saved every step, a barrier after each), and a
-    second invocation resumes on both ranks at the saved step."""
+    {distributed: true, n_data: auto}`` (``torchrun_cli``).  Returns the
+    ckpdir."""
+    return torchrun_cli(config, split, tmp, "dp", {"n_data": "auto"}, DP_RANKS)
+
+
+def torchrun_cli(config, split, tmp, tag, parallel, world):
+    """``cli.train ASRTrainer`` through ``python -m torch.distributed.run
+    --nproc-per-node world`` with ``parallel: {distributed: true,
+    **parallel}`` on DP_CLI_UTTS of the tone corpus's train split (odd: the
+    step cap trims one data index's second batch), in one ckpdir: every
+    rank logs the same losses at the same steps, rank 0 alone writes the
+    checkpoints (saved every step, a barrier after each), and a second
+    invocation resumes on every rank at the saved step.  Returns the
+    ckpdir."""
     import yaml
 
     from ss_asr_tpu_torch.data.index import load_index, save_index
 
-    d = os.path.join(tmp, "dp_cli")
+    d = os.path.join(tmp, f"{tag}_cli")
     os.makedirs(d, exist_ok=True)
     idx = os.path.join(d, "train.tsv")
     save_index(load_index(split[0])[:DP_CLI_UTTS], idx)
-    ck = os.path.join(d, "result", "dp")
+    ck = os.path.join(d, "result", tag)
+    name = f"torchrun --nproc-per-node {world} cli.train ({parallel})"
 
     def run(n_epochs):
         c = train_config(config, (idx, split[1]), n_epochs)
         c["asr"].update(train_batch_size=DP_CLI_B, valid_batch_size=DP_CLI_B, save_step=1)
-        c["parallel"] = {"distributed": True, "n_data": "auto"}
-        path = os.path.join(d, f"dp_{n_epochs}.yaml")
+        c["parallel"] = {"distributed": True, **parallel}
+        path = os.path.join(d, f"{tag}_{n_epochs}.yaml")
         with open(path, "w") as f:
             yaml.safe_dump(c, f)
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(DP_RANKS),
+            [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(world),
              "--master-addr", "127.0.0.1", "--master-port", str(free_port()),
-             "-m", "ss_asr_tpu_torch.cli.train", "ASRTrainer", "dp", path,
+             "-m", "ss_asr_tpu_torch.cli.train", "ASRTrainer", tag, path,
              os.path.join(d, "runs"), os.path.join(d, "result"), "--seed", str(SEED),
              "--verbose", "0", "--device", DEVICE],
             cwd=HERE, env={**os.environ, "PYTHONPATH": HERE}, capture_output=True, text=True,
             timeout=600)
         if proc.returncode != 0:
-            fail(f"torchrun cli.train exited {proc.returncode}: {proc.stderr[-3000:]}")
+            fail(f"{name} exited {proc.returncode}: {proc.stderr[-3000:]}")
         logs = []
-        for sub in ("", f"rank{DP_RANKS - 1}"):
-            with open(os.path.join(d, "runs", "dp", "asr", sub, "metrics.jsonl")) as f:
+        for sub in [""] + [f"rank{r}" for r in range(1, world)]:
+            with open(os.path.join(d, "runs", tag, "asr", sub, "metrics.jsonl")) as f:
                 logs.append([(r["step"], r["value"]) for r in map(json.loads, f)
                              if r["key"] == "asr_train_loss"])
         with open(os.path.join(ck, "tracker.json")) as f:
@@ -3412,25 +3465,27 @@ def check_dp_cli(config, split, tmp):
 
     secs, logs, step = run(DP_CLI_EPOCHS)
     files = sorted(os.listdir(ck))
-    print(f"torchrun --nproc-per-node {DP_RANKS} cli.train ASRTrainer: {DP_CLI_UTTS} tone "
-          f"utterances, batch {DP_CLI_B} a rank, {DP_CLI_EPOCHS} epochs in {secs:.1f} s "
-          f"(processes included); rank 0 steps {[s for s, _ in logs[0]]}, rank {DP_RANKS - 1} "
-          f"{[s for s, _ in logs[1]]}, losses {[f'{v:.4f}' for _, v in logs[0]]}; tracker "
-          f"step {step}; ckpdir {files}", flush=True)
-    if not (logs[0] == logs[1] and [s for s, _ in logs[0]] == list(range(DP_CLI_EPOCHS))
-            and step == DP_CLI_EPOCHS):
-        fail(f"torchrun cli.train: the ranks' logs {logs} or the tracker step {step} are not "
-             f"{DP_CLI_EPOCHS} equal steps (one a rank and epoch, the cap trimming the other)")
+    print(f"{name}: {DP_CLI_UTTS} tone utterances, batch {DP_CLI_B} a data index, "
+          f"{DP_CLI_EPOCHS} epochs in {secs:.1f} s (processes included); rank 0 steps "
+          f"{[s for s, _ in logs[0]]}, losses {[f'{v:.4f}' for _, v in logs[0]]}, the other "
+          f"ranks' logs equal: {all(lg == logs[0] for lg in logs)}; tracker step {step}; "
+          f"ckpdir {files}", flush=True)
+    if not (all(lg == logs[0] for lg in logs) and [s for s, _ in logs[0]] ==
+            list(range(DP_CLI_EPOCHS)) and step == DP_CLI_EPOCHS):
+        fail(f"{name}: the ranks' logs {logs} or the tracker step {step} are not "
+             f"{DP_CLI_EPOCHS} equal steps (one a data index and epoch, the cap trimming the "
+             "other)")
     if not {"asr.npz", "asr_opt.npz", "tracker.json"} <= set(files):
-        fail(f"torchrun cli.train: the ckpdir holds {files}")
+        fail(f"{name}: the ckpdir holds {files}")
     secs, logs, step = run(1)
     resumed = [[s for s, _ in lg[DP_CLI_EPOCHS:]] for lg in logs]
-    print(f"torchrun cli.train resumed: rank 0 steps {resumed[0]}, rank {DP_RANKS - 1} "
-          f"{resumed[1]} in {secs:.1f} s; tracker step {step}", flush=True)
-    if not (resumed[0] == resumed[1] == [DP_CLI_EPOCHS] and logs[0] == logs[1]
+    print(f"{name} resumed: steps {resumed} (a list a rank) in {secs:.1f} s; tracker step "
+          f"{step}", flush=True)
+    if not (all(r == [DP_CLI_EPOCHS] for r in resumed) and all(lg == logs[0] for lg in logs)
             and step == DP_CLI_EPOCHS + 1):
-        fail(f"torchrun cli.train did not resume on both ranks at step {DP_CLI_EPOCHS}: "
-             f"{resumed}, tracker step {step}")
+        fail(f"{name} did not resume on every rank at step {DP_CLI_EPOCHS}: {resumed}, tracker "
+             f"step {step}")
+    return ck
 
 
 def recording(t):
@@ -3601,17 +3656,166 @@ def check_mesh_serving(torch, config, asr_tree, lm_path, new_asr_tree, sigs, tmp
 
 def check_data_parallel(torch, rng, config, asr_tree, lm_path, new_asr_tree, sigs, split, tmp):
     """Phase 12: the DP step over two ranks on the card, ``cli.train`` under
-    torchrun, mesh serving.  Returns {path: launches}."""
+    torchrun, mesh serving.  Returns ({path: launches}, and for phase 13:
+    the DP step's batch, its one-process reference, the DP run's ckpdir)."""
     t0 = time.perf_counter()
-    launches = check_dp_step(torch, rng, config, asr_tree, tmp)
-    check_dp_cli(config, split, tmp)
+    launches, batch, ref = check_dp_step(torch, rng, config, asr_tree, tmp)
+    dp_ck = check_dp_cli(config, split, tmp)
     launches.update(check_mesh_serving(torch, config, asr_tree, lm_path, new_asr_tree, sigs, tmp))
     print(f"phase 12 (data parallelism, mesh serving): {time.perf_counter() - t0:.1f} s",
           flush=True)
+    return launches, batch, ref, dp_ck
+
+
+# ----------------------------------------------------------------------
+# phase 13: tensor parallelism
+
+TP_STEP_MESH = (1, 2)  # (a): one model group of two ranks, sharing the card under gloo
+TP_CLI_MESH = (2, 2)  # (b): torchrun --nproc-per-node 4
+TP_PER_STEP = {"fbank": 1, "lstm_fwd": 4, "lstm_bwd": 4, "spell_fwd": 1, "spell_bwd": 1}
+TP_CKPT_TOL = 1e-5  # (b)'s checkpoint against phase 12 (b)'s: relative L2 a leaf ...
+TP_CKPT_ATOL = 1e-7  # ... or every element within this (a leaf of rounding noise)
+
+
+def column_parallel_bytes(cfg, B, T, gathered) -> int:
+    """The bytes a rank would hand to its collectives a step if the
+    listener's input projections and ``psi`` ran column-parallel instead of
+    on gathered weights (``gathered`` bytes a step now): their outputs
+    all-gathered (gx [T_l, B, 8H] a layer, both directions; psi's [B, S,
+    M]), their inputs' gradients all-reduced (layers 2-4 and psi: layer 1's
+    fbank input takes none), and the other sharded weights gathered as now.
+    float32."""
+    H, S = cfg.encoder_state_size, T // 8
+    gx = sum((T >> i) * B * 8 * H for i in range(4)) + B * S * cfg.mlp_out_size
+    dx = sum((T >> i) * B * 4 * H for i in range(1, 4)) + B * S * cfg.enc_out_dim
+    w_ih = 2 * 4 * H * (cfg.feature_dim + 3 * 4 * H) + cfg.enc_out_dim * cfg.mlp_out_size
+    return int(4 * (gx + dx - w_ih) + gathered)
+
+
+def check_tp_step(torch, config, asr_tree, tmp, batch, ref):
+    """Phase 13 (a): the flagship ASR step (B = TRAIN_B, T = 512, L =
+    TRAIN_L, tf 0.9, the frontend from the waveforms) over the TP_STEP_MESH
+    ranks in processes of their own sharing the card under gloo, on phase
+    12's batch: every rank's gathered parameters bit-equal after each of
+    DP_STEPS steps; each rank's launches exactly TP_PER_STEP a step on the
+    cluster routes; the losses and updates held against phase 12's one
+    process on the same batch by the anchored rule; the step's wall (CUDA
+    events, median of DP_TIMED) beside that process's, and the bytes each
+    rank gathered and reduced a step beside what the column-parallel form
+    would move.  Returns {path: launches}."""
+    from ss_asr_tpu_torch.models.las import ASRConfig
+    from ss_asr_tpu_torch.utils.checkpoint import save_pytree
+
+    c, wave, n, y = batch
+    D, M = TP_STEP_MESH
+    save_pytree(os.path.join(tmp, "result", "tp_ranks", "asr.npz"), asr_tree)
+    t0 = time.perf_counter()
+    ranks = run_ranks(rank_steps, D * M, os.path.join(tmp, "tp_step_ranks"),
+                      {**c, "parallel": {"n_data": D, "n_model": M}}, tmp, "tp_ranks",
+                      *(a.cpu().numpy() for a in (wave, n, y)))
+    secs = time.perf_counter() - t0
+    r0 = ranks[0]
+    print(f"TP step: {D * M} ranks on {[r['device'] for r in ranks]} ({r0['backend']}), mesh "
+          f"{r0['mesh']}, {r0['shards']} of the optimizer's tensors sharded; ranks done in "
+          f"{secs:.1f} s (start-up included)", flush=True)
+    for r in ranks[1:]:
+        if r["digests"] != r0["digests"] or r["losses"] != r0["losses"]:
+            fail(f"TP step: the ranks' gathered parameters or losses differ: "
+                 f"{[q['losses'] for q in ranks]}")
+    for rank, r in enumerate(ranks):
+        got = {k: r["launches"][k] for k in TP_PER_STEP}
+        if got != {k: v * DP_STEPS for k, v in TP_PER_STEP.items()}:
+            fail(f"TP step: rank {rank} launched {got} in {DP_STEPS} steps, not "
+                 f"{TP_PER_STEP} a step")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+    require_cluster_route("TP step", launches)
+    worst, n_updates = against_reference(torch, "TP", r0, ref)
+    losses = ref["losses"]
+    print(f"TP step B={TRAIN_B} T={ref['T']} L={TRAIN_L} tf 0.9 at (data, model) = {D} x {M}, "
+          f"{DP_STEPS} steps: losses TP {[f'{v:.6f}' for v in r0['losses']]}, one process "
+          f"{[f'{v:.6f}' for v in losses[0]]}, float64 {[f'{v:.6f}' for v in losses[2]]}; the "
+          f"losses and the {n_updates} updates against float64: worst TP rel L2 "
+          f"{worst[0]:.3e} (one process on the card {worst[1]:.3e}, CPU float32 "
+          f"{worst[2]:.3e}, {worst[3]}); the ranks' gathered parameters bit-equal after every "
+          f"step", flush=True)
+    cfg = ASRConfig.from_dict(c["asr"]["mdl"])
+    gather, reduce = (r0["bytes"][k] / DP_STEPS for k in ("gather", "reduce"))
+    tp_ms, one_ms = statistics.median(r0["times"]), statistics.median(ref["times"])
+    print(f"TP step wall (CUDA events, median of {DP_TIMED}): {D * M} ranks sharing the card "
+          f"{tp_ms:.3f} ms (rank 1 {statistics.median(ranks[1]['times']):.3f}; min "
+          f"{min(r0['times']):.3f}, max {max(r0['times']):.3f}) against one process on the "
+          f"batch {one_ms:.3f} ms (min {min(ref['times']):.3f}, max {max(ref['times']):.3f}); "
+          f"bytes a rank handed to its all-reduces a step: gather {gather:.0f}, gradient "
+          f"average {reduce:.0f} (the column-parallel projections would hand "
+          f"{column_parallel_bytes(cfg, TRAIN_B, ref['T'], gather)}); launches per rank and step "
+          f"{({k: v // DP_STEPS for k, v in r0['launches'].items() if v})}", flush=True)
+    return {"tp step": launches}
+
+
+def check_tp_cli(torch, config, split, held_sigs, dp_ck, tmp):
+    """Phase 13 (b): ``cli.train ASRTrainer`` through ``torchrun
+    --nproc-per-node 4`` at (data, model) = TP_CLI_MESH (``torchrun_cli``:
+    every rank's losses equal, rank 0 alone writes, every rank resumes);
+    the checkpoint's parameter and optimizer leaves full width and, since
+    its data axis reads the rows and draws of phase 12 (b)'s two ranks,
+    every leaf within TP_CKPT_TOL (relative L2; a leaf of rounding noise
+    every element within TP_CKPT_ATOL) of the DP run's (``dp_ck``); the
+    checkpoint served by a greedy ``Transcriber`` on the held-out signals
+    of phase 10.  Returns {path: launches}."""
+    import numpy as np
+
+    from ss_asr_tpu_torch import convert
+    from ss_asr_tpu_torch.api import Transcriber
+    from ss_asr_tpu_torch.models.las import ASRConfig
+    from ss_asr_tpu_torch.utils import checkpoint as ckpt
+
+    D, M = TP_CLI_MESH
+    ck = torchrun_cli(config, split, tmp, "tp", {"n_data": D, "n_model": M}, D * M)
+    want = [a.shape for a in convert.tree_leaves(
+        convert.init_asr_numpy(0, ASRConfig.from_dict(config["asr"]["mdl"])))]
+    tp_leaves, dp_leaves = (convert.tree_leaves(ckpt.load_pytree(os.path.join(d, "asr.npz")))
+                            for d in (ck, dp_ck))
+    got = [np.shape(a) for a in tp_leaves]
+    slots = [np.shape(a) for a in ckpt.load_opt_state(os.path.join(ck, "asr_opt.npz"))[3:]]
+    if got != want or slots != want * 2:
+        fail(f"TP cli.train: the checkpoint's leaves {got} / optimizer slots {slots} are not the "
+             f"full-width {want}")
+    errs = [(rel_l2(torch, torch.from_numpy(a).double(), torch.from_numpy(b).double()),
+             float(np.abs(a.astype(np.float64) - b).max())) for a, b in zip(tp_leaves, dp_leaves)]
+    worst = max(e for e, _ in errs)
+    print(f"TP cli.train checkpoint against the DP run's (the same rows and draws): worst leaf "
+          f"rel L2 {worst:.3e}", flush=True)
+    if not all(e <= TP_CKPT_TOL or a <= TP_CKPT_ATOL for e, a in errs):
+        fail(f"TP cli.train: the checkpoint differs from the DP run's: {errs}")
+    t = Transcriber.from_checkpoint(os.path.join(ck, "asr.npz"), config, device=DEVICE,
+                                    sr=PRE_SR, beam_size=1, max_steps=MAX_STEPS)
+    t.transcribe_signal_batch(held_sigs[:1], sr=PRE_SR)  # warm-up
+    zero_launches()
+    texts = t.transcribe_signal_batch(held_sigs, sr=PRE_SR)
+    launches = read_launches()
+    print(f"TP cli.train checkpoint: {len(got)} leaves and {len(slots)} optimizer slots full "
+          f"width; greedy Transcriber on {len(held_sigs)} held-out signals: "
+          f"{[txt[:24] for txt in texts]}", flush=True)
+    if len(texts) != len(held_sigs) or not all(isinstance(x, str) for x in texts):
+        fail(f"TP checkpoint: the Transcriber gave {texts}")
+    for k in ("fbank", "lstm_fwd", "greedy_decode"):
+        if launches[k] < 1:
+            fail(f"TP checkpoint decode: launched {k} {launches[k]} times")
+    return {"tp decode": launches}
+
+
+def check_tensor_parallel(torch, config, asr_tree, split, held_sigs, batch, ref, dp_ck, tmp):
+    """Phase 13: the TP step over two ranks on the card, ``cli.train`` under
+    torchrun at (2, 2).  Returns {path: launches}."""
+    t0 = time.perf_counter()
+    launches = check_tp_step(torch, config, asr_tree, tmp, batch, ref)
+    launches.update(check_tp_cli(torch, config, split, held_sigs, dp_ck, tmp))
+    print(f"phase 13 (tensor parallelism): {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "ss_asr_tpu_torch")):
         fail(f"ss_asr_tpu_torch not found beside {os.path.basename(__file__)}: run from a checkout")
     sys.path.insert(0, HERE)
@@ -3721,9 +3925,14 @@ def main() -> None:
         launches.update(check_options(torch, np.random.default_rng(SEED + 11), config, asr_tree,
                                       trained_asr, lm_path, held_sigs, tmp))
         # phase 12: data parallelism and mesh serving, on a stream of their own
-        launches.update(check_data_parallel(torch, np.random.default_rng(SEED + 12), config,
-                                            asr_tree, paths["lm"], new_asr_tree, sigs, split,
-                                            tmp))
+        more, batch, ref, dp_ck = check_data_parallel(
+            torch, np.random.default_rng(SEED + 12), config, asr_tree, paths["lm"], new_asr_tree,
+            sigs, split, tmp)
+        launches.update(more)
+        # phase 13: tensor parallelism, on phase 12's batch, one-process reference and DP run
+        launches.update(check_tensor_parallel(torch, config, asr_tree, split, held_sigs, batch,
+                                              ref, dp_ck, tmp))
+        del ref
     # each kernel's launches on the serving, training and test paths, each path counted on its own
     counts = {name: sum(ls[name] for ls in launches.values()) for name in results}
     cluster_launches = {name: sum(ls[counter] for ls in launches.values())
@@ -3753,6 +3962,7 @@ def main() -> None:
                 **({"cluster_launches": cluster_launches[name]} if name in cluster_launches
                    else {})}
                for name, (src, rep) in replaces.items()]
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -70,7 +70,7 @@ class Transcriber:
             names = tuple(getattr(mesh, "axis_names", ()))
             if DATA_AXIS not in names:
                 raise ValueError(f"mesh needs a '{DATA_AXIS}' axis, has {names}")
-            self._slots = tuple(mesh.devices)
+            self._slots = tuple(mesh.data_devices)
         else:
             self._slots = (self.device,)
         #: the (ASR, LM) pair and its replica on each mesh device, in ONE

@@ -18,6 +18,10 @@ brings up ``torch.distributed`` from ``torchrun``'s environment before the
 trainers are built, one rank per device (``parallel/mesh.py``)::
 
     python -m torch.distributed.run --nproc-per-node N -m ss_asr_tpu_torch.cli.train ...
+
+Tensor parallel (``ASRTrainer``): ``parallel: {distributed: true, n_data: D,
+n_model: M}`` under ``--nproc-per-node D*M`` (ranks that share a card run
+gloo; one card a rank runs NCCL).
 """
 
 from __future__ import annotations
@@ -76,22 +80,12 @@ def main(argv=None):
 
 
 def _run(config, paras):
-    if paras.type == "Seed":
-        from ss_asr_tpu_torch.train.seed import asr_seed_train
+    from ss_asr_tpu_torch.train import TRAINERS, asr_seed_train
 
+    if paras.type == "Seed":
         asr_seed_train(config, paras, device=paras.device)
         return
-    from ss_asr_tpu_torch.train.adv_trainer import ADVTrainer
-    from ss_asr_tpu_torch.train.asr_trainer import ASRTrainer
-    from ss_asr_tpu_torch.train.lm_trainer import CHARLMTrainer
-    from ss_asr_tpu_torch.train.sae_trainer import SAETrainer
-    from ss_asr_tpu_torch.train.tae_trainer import TAETrainer
-    from ss_asr_tpu_torch.train.tester import ASRTester
-
-    trainers = {"ASRTrainer": ASRTrainer, "ASRTester": ASRTester, "LMTrainer": CHARLMTrainer,
-                "CHARLMTrainer": CHARLMTrainer, "TAETrainer": TAETrainer,
-                "SAETrainer": SAETrainer, "AdvTrainer": ADVTrainer, "ADVTrainer": ADVTrainer}
-    solver = trainers[paras.type](config, paras, device=paras.device)
+    solver = TRAINERS[paras.type](config, paras, device=paras.device)
     solver.load_data()
     solver.set_model()
     solver.exec()

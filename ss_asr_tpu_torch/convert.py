@@ -12,6 +12,8 @@
   HWIO <-> OIHW) and ``disc_*``: the same pairs for the text autoencoder,
   the speech autoencoder and the discriminator; their ``state_dict`` keys are
   those of ``export_tae`` / ``export_sae`` / ``export_discriminator`` there.
+* ``asr_leaf_layout``: the JAX leaf's shape behind each ``LAS`` tensor,
+  on which tensor parallelism shards (``parallel/mesh.py``).
 * ``opt_state_leaves`` / ``load_opt_state_leaves``: an optimizer over several
   models' parameters (named ``<model>.<state_dict key>``), masked to some
   subtrees, as the leaves of the JAX package's optax state (the char-LM
@@ -129,6 +131,17 @@ def asr_params_from_state(sd: Dict[str, torch.Tensor]) -> Tree:
         "embed": {"table": _n(sd["embed.weight"])},
         "char_trans": _linear_from(sd, "char_trans"),
     }
+
+
+def asr_leaf_layout(key: str, shape: Tuple[int, ...]) -> Tuple[Tuple[int, ...], bool]:
+    """The JAX leaf behind ``LAS.state_dict()[key]`` of torch ``shape``: (its
+    shape, whether the torch tensor is that leaf transposed).
+    ``asr_state_from_params`` transposes every matrix (``w [in, out]`` ->
+    ``weight [out, in]``) but the embedding table; the biases are vectors
+    (``bias_ih`` and ``bias_hh`` both stand for the one ``b``).  Tensor
+    parallelism reads the JAX package's sharding rule on these shapes."""
+    transposed = len(shape) == 2 and key != "embed.weight"
+    return (tuple(shape)[::-1] if transposed else tuple(shape)), transposed
 
 
 def tae_state_from_params(tree: Tree) -> Dict[str, torch.Tensor]:

@@ -1,2 +1,3 @@
-"""Data parallelism: the device mesh, batch sharding and the collectives of
-the data-parallel train step (``parallel/mesh.py``)."""
+"""Data and tensor parallelism: the device mesh, the sharding rules, batch
+sharding and the collectives of the parallel train steps
+(``parallel/mesh.py``)."""

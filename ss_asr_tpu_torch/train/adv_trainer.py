@@ -54,6 +54,7 @@ class ADVTrainer(Solver):
         self.mapper = self.train_ds.mapper
 
     def set_model(self, asrpath=None, taepath=None):
+        self.refuse_tp()
         self.asrpath_in, self.asrpath_out = self.genpath(asrpath, "asr")
         taepath_in, _ = self.genpath(taepath, "tae")
         self.asr_cfg = las.ASRConfig.from_dict(self.config["asr"]["mdl"])

@@ -17,6 +17,11 @@ over the ranks, draws for the global batch and keeps its rows, and averages
 the gradients and the loss over the ranks before the optimizer's step
 (``Solver``).  Validation stays whole-corpus on every rank, so that the
 eval metrics agree without a gather.
+Tensor parallel (``parallel: {n_data: D, n_model: M}``, D x M ranks): the
+ranks of a model group train on the same rows, the optimizer holds the
+rank's shards (``Solver.place_tp``), and the model's full weights, which
+the kernels, ``valid()`` and the checkpoints read, are gathered from them
+after every update; a save gathers the optimizer's slots too.
 Validation decodes with greedy feedback for ``L - 1 + 30`` steps (the
 reference's free-run margin) and scores the first ``L - 1``.
 
@@ -80,12 +85,15 @@ class ASRTrainer(Solver):
                                                      ckpt.load_opt_state(self.opt_ckppath)):
                 self.verbose("Optimizer state does not fit this optimizer; starting it fresh")
         self.broadcast_state([self.model], [self.optim])
+        if self.tp is not None:
+            self.optim = self.place_tp(self.model, self.optim)
 
     def params_tree(self):
         return convert.asr_params_from_state(self.model.state_dict())
 
     def save_state(self):
-        super().save_state(self.params_tree(), convert.asr_opt_state_leaves(self.optim, self.model))
+        optim = self.optim if self.tp is None else self.tp_gathered(self.model, self.optim)
+        super().save_state(self.params_tree(), convert.asr_opt_state_leaves(optim, self.model))
 
     def _placed(self, b):
         return (torch.from_numpy(b.x).to(self.device), torch.from_numpy(b.x_lens).to(self.device),
@@ -118,8 +126,12 @@ class ASRTrainer(Solver):
                                        gumbel=gumbel)
         loss = losses.masked_ce_per_utt(logits, y[:, 1:], y)
         loss.backward()
+        if self.tp is not None:
+            self.tp_grads(self.model, self.optim)
         (loss,) = self.dp_average(self.optim.params.values(), loss.detach())
         self.optim.step()
+        if self.tp is not None:
+            self.tp_sync(self.model, self.optim)
         return loss.detach(), logits.detach()[:, :L_own]
 
     def exec(self):

@@ -46,6 +46,7 @@ class CHARLMTrainer(Solver):
         self.mapper = Mapper()
 
     def set_model(self):
+        self.refuse_tp()
         c = self.config["char_lm"]
         self.cfg = charlm.CharLMConfig.from_dict({**c["mdl"], "tf_rate": self.tf_rate})
         lm = charlm.CharLM(self.cfg)

@@ -44,6 +44,14 @@ that each step equals optax's:
   that mean and resets it.  A call with a non-finite gradient is skipped
   whole: it moves no mini-step and is absent from the mean.
 
+* **Tensor parallelism** (``with_state``; ``parallel/mesh.py``): the
+  optimizer over a model rank's shards, its slots cut the same way.  The
+  clip's norm counts each element once (``global_norm``: the shards'
+  squares summed over the model group, the replicated leaves' added once),
+  and the NaN skip's ``finite`` is agreed over the group, so that every rank
+  takes the same skip, accumulation and schedule decision; the updates are
+  elementwise on the shards.
+
 The parameters are updated in place.  The accumulators are kept per
 parameter name; ``convert`` writes and reads them in the JAX package's npz
 layout.  ``prefix_mask`` / ``path_mask`` select names by their dotted path,
@@ -52,6 +60,7 @@ as the JAX package's select leaves by key path.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Callable, Dict, Iterable, Optional, Sequence, Set, Tuple, Union
 
@@ -112,6 +121,21 @@ def make_schedule(learning_rate: float, warmup_steps: int = 0, decay_steps: int 
     return lambda count: float(linear(count) if count < W else cosine(count - W))
 
 
+def global_norm(grads: Dict[str, torch.Tensor], shards: Set[str] = frozenset(),
+                group=None) -> torch.Tensor:
+    """The clip's global norm, ``sqrt`` of the sum of every element's square
+    (optax's ``global_norm``).  Under tensor parallelism ``shards`` names
+    the gradients that are this rank's slices: their squares are summed over
+    ``group`` (the model group) and the replicated gradients' added once."""
+    if group is None:
+        return torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+    import torch.distributed as dist
+
+    part = sum(torch.sum(g * g) for k, g in grads.items() if k in shards)
+    dist.all_reduce(part, group=group)
+    return torch.sqrt(part + sum(torch.sum(g * g) for k, g in grads.items() if k not in shards))
+
+
 def path_mask(names: Iterable[str], pred: Callable[[Tuple[str, ...]], bool]) -> Set[str]:
     """The names whose dotted path satisfies ``pred`` (a tuple of its parts)."""
     return {n for n in names if pred(tuple(n.split(".")))}
@@ -160,6 +184,26 @@ class Optimizer:
         self.acc_grads: Dict[str, torch.Tensor] = (
             {k: torch.zeros_like(p) for k, p in self.params.items()}
             if self.accum_steps > 1 else {})
+        # tensor parallelism: the names of this rank's shards, and the model group
+        self.shards: Set[str] = set()
+        self.group = None
+
+    def with_state(self, fn: Callable[[str, torch.Tensor], torch.Tensor],
+                   params: Optional[Dict[str, torch.Tensor]] = None, group=None) -> "Optimizer":
+        """A shallow copy whose slots and running means are ``fn(name,
+        tensor)`` of this one's.  Tensor parallelism cuts the optimizer into
+        a rank's shards with it (``params``: the parameters under the same
+        names, a rank's slice where one is not the parameter itself;
+        ``group``: the model group), and gathers the slots back for a
+        checkpoint.  The counters are shared until the next step replaces
+        them."""
+        o = copy.copy(self)
+        o.state = {s: {k: fn(k, v) for k, v in d.items()} for s, d in self.state.items()}
+        o.acc_grads = {k: fn(k, v) for k, v in self.acc_grads.items()}
+        if params is not None:
+            o.shards = {k for k, p in params.items() if p is not self.params[k]}
+            o.params, o.group = dict(params), group
+        return o
 
     def rate(self) -> float:
         """The learning rate of the next update."""
@@ -173,6 +217,11 @@ class Optimizer:
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in self.params.items()}
         finite = torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
+        if self.group is not None:  # every model rank takes the same decision
+            from ss_asr_tpu_torch.parallel.mesh import all_reduce_int
+
+            finite = torch.full_like(finite, bool(all_reduce_int(int(finite), "min",
+                                                                 finite.device, self.group)))
         self.notfinite_count = torch.where(finite, torch.zeros_like(self.notfinite_count),
                                            _safe_increment(self.notfinite_count))
         self.total_notfinite = torch.where(finite, self.total_notfinite,
@@ -200,7 +249,7 @@ class Optimizer:
         return True
 
     def _update(self, grads: Dict[str, torch.Tensor]) -> None:
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        g_norm = global_norm(grads, self.shards, self.group)
         if not bool(g_norm < GRAD_CLIP):
             grads = {k: (g / g_norm) * GRAD_CLIP for k, g in grads.items()}
         if self.opt_type == "adam":

@@ -51,6 +51,7 @@ class SAETrainer(Solver):
         self.mapper = self.train_ds.mapper
 
     def set_model(self, asrpath=None):
+        self.refuse_tp()
         self.asrpath_in, self.asrpath_out = self.genpath(asrpath, "asr")
         self.asr_cfg = las.ASRConfig.from_dict(self.config["asr"]["mdl"])
         self.sae_cfg = sae_mod.SAEConfig.from_dict({

@@ -22,6 +22,17 @@ process on the joined batch and the ranks' generators stay in lockstep.
 Rank 0 alone writes ``tracker.json`` and the checkpoints, with a barrier
 after each write; the other ranks log under ``rank{r}``.  ``n_data: 1`` (or
 no section) is the single-process path, unchanged.
+
+Tensor parallelism (``parallel: {n_data: D, n_model: M}``, D x M ranks, the
+ASR trainer; the others refuse it, as the JAX package's do): rank r sits at
+data index ``d = r // M`` (its rows: ``host_shard = (d, D)`` and the global
+batch's rows of ``d``) and model index ``r % M``.  ``place_tp`` cuts the
+optimizer to the rank's shards (``parallel/mesh.py``); a step's full
+gradient is cut to them (``tp_grads``), averaged over the data group, and
+after the update the model's full weights are gathered from the shards
+(``tp_sync``), so the kernels, ``valid()`` and the checkpoints read full
+weights.  A save gathers the optimizer's slots to full width
+(``tp_gathered``, collective); rank 0 writes, in the JAX package's layout.
 """
 
 from __future__ import annotations
@@ -42,32 +53,33 @@ from ss_asr_tpu_torch.utils.tracker import Tracker
 
 
 def make_solver_mesh(config: dict, device) -> Optional[pmesh.Mesh]:
-    """The data axis the ``parallel`` section asks for, over the ranks'
-    devices; None for one rank (``n_data: 1``, the default, or no section).
-    ``n_data: auto`` is the number of ranks; any other count must equal it:
-    in a single process a count above 1 raises, saying to launch that many
-    ranks.  ``n_model`` > 1 (tensor parallelism) is left out of the port."""
+    """The mesh the ``parallel`` section asks for, over the ranks' devices;
+    None for one rank (``n_data: 1``, the default, or no section).
+    ``n_data: auto`` is the number of ranks divided by ``n_model``; the mesh
+    must hold every rank: in a single process a larger mesh raises, saying to
+    launch that many ranks."""
     par = config.get("parallel") or {}
-    if int(par.get("n_model", 1)) != 1:
-        raise NotImplementedError(pmesh.TP_LEFT_OUT)
+    n_model = int(par.get("n_model", 1))
     world = pmesh.process_count()
     n_data = par.get("n_data", 1)
-    n_data = world if n_data in ("auto", -1) else int(n_data)
-    if n_data != world:
+    n_data = max(world // n_model, 1) if n_data in ("auto", -1) else int(n_data)
+    n = n_data * n_model
+    if n != world:
         if world == 1:
-            raise ValueError(f"parallel: n_data {n_data} asks for {n_data} data-parallel ranks, "
-                             f"but this process runs alone: launch {n_data} ranks, "
-                             f"{pmesh.LAUNCH.format(n=n_data)}, with parallel: "
-                             "{distributed: true}")
-        raise ValueError(f"parallel: n_data {n_data} under {world} ranks: set n_data: auto or "
-                         f"{world}")
+            what = (f"n_data {n_data}" if n_model == 1 else
+                    f"n_data {n_data} x n_model {n_model}")
+            raise ValueError(f"parallel: {what} asks for {n} ranks, but this process runs "
+                             f"alone: launch {n} ranks, {pmesh.LAUNCH.format(n=n)}, with "
+                             "parallel: {distributed: true}")
+        raise ValueError(f"parallel: n_data {n_data} x n_model {n_model} under {world} ranks: "
+                         f"set n_data: auto or {world // n_model}")
     if world == 1:
         return None
     import torch.distributed as dist
 
     devices = [None] * world
     dist.all_gather_object(devices, str(device))
-    return pmesh.Mesh(devices)
+    return pmesh.make_mesh(n_data, n_model, devices)
 
 
 def make_optim(params, opt: dict, **kw) -> Optimizer:
@@ -112,11 +124,14 @@ class Solver:
                                       "orbax backend is left out of it (ROADMAP.md)")
         self.mesh = make_solver_mesh(config, self.device)
         self.rank = pmesh.process_index()
+        self.n_model = int((config.get("parallel") or {}).get("n_model", 1))
+        self.data_index = self.rank // self.n_model
+        self.tp = pmesh.TensorParallel(self.mesh, self.rank) if self.n_model > 1 else None
         hs = (config.get("parallel") or {}).get("host_shard")
         if hs is not None:  # a rank's shard by hand: how one process exercises the path
             self.host_shard: Optional[Tuple[int, int]] = (int(hs[0]), int(hs[1]))
         elif self.mesh is not None:
-            self.host_shard = (self.rank, pmesh.process_count())
+            self.host_shard = (self.data_index, self.n_data)
         else:
             self.host_shard = None
 
@@ -172,8 +187,9 @@ class Solver:
         if self.mesh is not None:
             import torch.distributed as dist
 
-            self.verbose(f"Data parallel: rank {self.rank} of {len(self.mesh.devices)} "
-                         f"({dist.get_backend()}), devices {[str(d) for d in self.mesh.devices]}")
+            self.verbose(f"Parallel: rank {self.rank} of {len(self.mesh.devices)} "
+                         f"({dist.get_backend()}), mesh {self.mesh.shape}, devices "
+                         f"{[str(d) for d in self.mesh.devices]}")
         self.verbose("---------------------")
 
     def next_seed(self) -> int:
@@ -281,7 +297,7 @@ class Solver:
     # -- data parallelism (parallel/mesh.py); each a no-op for one rank -----
     @property
     def n_data(self) -> int:
-        return 1 if self.mesh is None else len(self.mesh.devices)
+        return 1 if self.mesh is None else self.mesh.shape[pmesh.DATA_AXIS]
 
     def broadcast_state(self, modules, optims) -> None:
         """Rank 0's parameters, buffers and optimizer slots over every rank's,
@@ -298,11 +314,16 @@ class Solver:
 
     def dp_average(self, params, *extras):
         """The data-parallel step's one all-reduce: every gradient of
-        ``params`` and each of ``extras`` averaged over the ranks (the
-        gradients in place) -> the averaged extras; unchanged for one rank."""
-        if self.mesh is None:
+        ``params`` (in place) and each of ``extras`` averaged over the ranks,
+        under tensor parallelism over the data group -> the averaged extras;
+        unchanged for one data index."""
+        if self.n_data == 1:
             return extras
-        return tuple(pmesh.average_gradients(params, extras))
+        if self.tp is None:
+            return tuple(pmesh.average_gradients(params, extras))
+        params = list(params)
+        self.tp.bytes["reduce"] += 4 * sum(t.numel() for t in params + list(extras))
+        return tuple(pmesh.average_gradients(params, extras, self.tp.data_group))
 
     def global_rows(self, B: int) -> Tuple[int, Optional[slice]]:
         """(the global batch, this rank's rows of it) for a local batch of
@@ -310,7 +331,7 @@ class Solver:
         each rank keeps its rows; (B, None) for one rank."""
         if self.mesh is None:
             return B, None
-        return B * self.n_data, slice(self.rank * B, (self.rank + 1) * B)
+        return B * self.n_data, slice(self.data_index * B, (self.data_index + 1) * B)
 
     def global_width(self, n: int) -> int:
         """The largest ``n`` over the ranks (a step's decode length, which
@@ -339,6 +360,54 @@ class Solver:
             self.verbose(f"data-parallel step cap: skipping {n - m} of {n} local batches this "
                          "epoch (other ranks have fewer)")
         return m
+
+    # -- tensor parallelism (parallel/mesh.py; the ASR trainer) ---------------
+    def refuse_tp(self) -> None:
+        """The JAX package's refusal, for the trainers of the small models."""
+        if self.n_model != 1:
+            raise AssertionError("parallel.n_model > 1 (tensor parallelism) is supported by the "
+                                 "ASR trainer; this model is too small to shard")
+
+    def place_tp(self, model: torch.nn.Module, optim: Optimizer) -> Optimizer:
+        """``optim`` over this rank's shards of ``model``'s sharded parameters
+        (``param_shardings``) and over the replicated ones as they are, its
+        slots and running means cut the same way.  The model keeps the full
+        weights that the kernels read."""
+        specs = pmesh.param_shardings(model.state_dict(), self.mesh)
+        self.tp_specs = {k: specs[k] for k in optim.params if specs[k]}
+
+        def cut(k, t):
+            return self.tp.local(t, self.tp_specs[k]).clone() if k in self.tp_specs else t
+
+        params = {k: cut(k, p.detach()) if k in self.tp_specs else p
+                  for k, p in optim.params.items()}
+        return optim.with_state(cut, params, self.tp.model_group)
+
+    def tp_grads(self, model: torch.nn.Module, optim: Optimizer) -> None:
+        """Each shard's gradient: its slice of the backward's full gradient
+        (the same on every model rank, which ran the same rows)."""
+        named = dict(model.named_parameters())
+        for k, spec in self.tp_specs.items():
+            g = named[k].grad
+            optim.params[k].grad = None if g is None else self.tp.local(g, spec).contiguous()
+            named[k].grad = None
+
+    def tp_sync(self, model: torch.nn.Module, optim: Optimizer) -> None:
+        """The model's full weights gathered from the updated shards."""
+        named = dict(model.named_parameters())
+        self.tp.gather_([(optim.params[k], named[k], spec) for k, spec in self.tp_specs.items()])
+
+    def tp_gathered(self, model: torch.nn.Module, optim: Optimizer) -> Optimizer:
+        """``optim`` with its slots and running means gathered to full width
+        (a collective: every rank calls it), for a checkpoint."""
+        named = dict(model.named_parameters())
+        pairs = [(t, torch.empty_like(named[k]), self.tp_specs[k])
+                 for d in list(optim.state.values()) + [optim.acc_grads]
+                 for k, t in d.items() if k in self.tp_specs]
+        if pairs:  # SGD without accumulation keeps no slot
+            self.tp.gather_(pairs)
+        full = {id(t): f for t, f, _ in pairs}
+        return optim.with_state(lambda k, t: full.get(id(t), t))
 
     def close(self) -> None:
         return None

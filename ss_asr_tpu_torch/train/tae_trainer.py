@@ -53,6 +53,7 @@ class TAETrainer(Solver):
         self.mapper = self.train_ds.mapper
 
     def set_model(self, asrpath=None):
+        self.refuse_tp()
         self.asrpath_in, self.asrpath_out = self.genpath(asrpath, "asr")
         self.asr_cfg = las.ASRConfig.from_dict(self.config["asr"]["mdl"])
         self.tae_cfg = tae_mod.TAEConfig.from_dict(self.config["tae"]["mdl"])

@@ -1335,6 +1335,66 @@ def test_dp_step_on_the_card_matches_one_process(cuda, tmp_path):
     assert all(launched[k] >= 2 for k in ("lstm_fwd", "lstm_bwd", "spell_fwd", "spell_bwd"))
 
 
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
+def test_tp_step_on_the_card_matches_one_process(cuda, tmp_path, mesh):
+    """Tensor parallelism at (data, model) = ``mesh``, the ranks on the
+    cards (sharing one under gloo; one a card under NCCL where there are
+    enough; tests/torch_tp_workers.py), against one process on the joined
+    batches, tf 0.9: losses and gathered parameters within 1e-5 relative,
+    the ranks' gathered trees bit-equal, every rank launching K2, K3, K9
+    and K10 on the gathered weights."""
+    import torch_dp_workers as workers
+    import torch_tp_workers as tp_workers
+
+    mdl = {"encoder_state_size": 32, "mlp_out_size": 16, "decoder_state_size": 32,
+           "tf_rate": 0.9, "feature_dim": 8}
+    config = {"asr": {"opt": {"type": "Adadelta", "learning_rate": 1.0}, "mdl": mdl}}
+    rng = np.random.default_rng(8)
+    batches = []
+    for _ in range(2):
+        x = (0.5 * rng.standard_normal((8, 32, 8))).astype(np.float32)
+        xl = rng.integers(16, 33, size=8).astype(np.int32)
+        y = np.zeros((8, 9), np.int64)
+        for i, k in enumerate(rng.integers(2, 8, size=8)):
+            y[i, 1:k + 1] = rng.integers(3, VOCAB_SIZE, size=k)
+            y[i, k + 1] = EOS_ID
+        batches.append((x, xl, y))
+    tree = convert.init_asr_numpy(3, las.ASRConfig(**mdl))
+    from ss_asr_tpu_torch.train.asr_trainer import ASRTrainer
+    from ss_asr_tpu_torch.train.solver import make_paras
+    from ss_asr_tpu_torch.utils.checkpoint import save_pytree
+
+    for name in ("tp", "one"):
+        save_pytree(str(tmp_path / "result" / name / "asr.npz"), tree)
+    D, M = mesh
+    ranks = workers.run_ranks(tp_workers.tp_steps, D * M, tmp_path / "ranks",
+                              [({**config, "parallel": {"n_data": D, "n_model": M}},
+                                str(tmp_path), "tp", batches)], device="cuda")
+    t = ASRTrainer(config, make_paras("one", str(tmp_path / "runs"), str(tmp_path / "result"), 1,
+                                      False), device="cuda")
+    t.set_model()
+    losses = [float(t.step(*(torch.from_numpy(a).to(cuda) for a in b))[0]) for b in batches]
+    rs = [r[0] for r in ranks]
+    r0 = rs[0]
+    for r in rs[1:]:
+        assert r["losses"] == r0["losses"]
+        for a, b in zip(convert.tree_leaves(r0["tree"]) + r0["opt"],
+                        convert.tree_leaves(r["tree"]) + r["opt"]):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(r0["losses"], losses, rtol=1e-5)
+    for a, b in zip(convert.tree_leaves(r0["tree"]), convert.tree_leaves(t.params_tree())):
+        err = np.abs(a.astype(np.float64) - b).max(initial=0.0)
+        assert err <= 1e-7 or np.linalg.norm(a - b) <= 1e-5 * np.linalg.norm(b)
+    for r in rs:
+        assert all(r["launches"][k] >= 2 for k in ("lstm_fwd", "lstm_bwd", "spell_fwd",
+                                                   "spell_bwd"))
+        assert r["shards"] and r["bytes"]["gather"] > 0
+    # a card a rank (NCCL) where the machine has enough, else all on one (gloo)
+    own = torch.cuda.device_count() >= D * M
+    assert [r["backend"] for r in rs] == ["nccl" if own else "gloo"] * (D * M)
+    assert [r["device"] for r in rs] == [f"cuda:{i if own else 0}" for i in range(D * M)]
+
+
 @pytest.mark.parametrize("kw,kernel", [({"beam_size": 1}, "greedy_decode"),
                                        ({"beam_size": 1, "lm_weight": 0.5}, "greedy_decode_lm"),
                                        ({"beam_size": 3, "lm_weight": 0.5}, "beam_decode_lm")],

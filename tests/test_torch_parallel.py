@@ -3,8 +3,8 @@
 the JAX package's ``parallel/mesh.py`` and ``ASRDataset(host_shard=)``.
 
 * ``make_mesh`` over an explicit device list (a repeated device splits rows
-  on one device), its refusals; ``shard_batch``; ``pad_batch_to`` equal to
-  JAX's.
+  on one device), its refusals, its (data, model) form; ``shard_batch``;
+  ``pad_batch_to`` equal to JAX's.
 * The collectives on two spawned gloo ranks (tests/torch_dp_workers.py):
   one flat all-reduce averages every gradient, a missing one as zeros, and
   the extras; the broadcast; the MIN / MAX step agreement; the ranks'
@@ -12,8 +12,8 @@ the JAX package's ``parallel/mesh.py`` and ``ASRDataset(host_shard=)``.
 * ``set_epoch`` and ``shard_index_rows``: for 3 epochs x 2 ranks, each
   rank's rows and the order in which it dispatches its batches equal the
   JAX package's.
-* The solver's mesh: one process asked for more ranks than it is is told to
-  launch them; ``n_data: 1`` trains bit for bit as no ``parallel:``
+* The solver's mesh: one process asked for more ranks than it is (data or
+  tensor parallel) is told to launch them; ``n_data: 1`` trains bit for bit as no ``parallel:``
   section.
 """
 
@@ -49,8 +49,8 @@ def test_make_mesh_over_a_device_list():
     assert pmesh.make_mesh(n_data=3, devices=["cpu"] * 8).shape == {"data": 3}
     with pytest.raises(ValueError, match="mesh 9x1 > 8 devices"):
         pmesh.make_mesh(n_data=9, devices=["cpu"] * 8)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        pmesh.make_mesh(n_data=4, n_model=2, devices=["cpu"] * 8)
+    tp = pmesh.make_mesh(n_data=4, n_model=2, devices=["cpu"] * 8)  # test_torch_tp.py
+    assert tp.shape == {"data": 4, "model": 2} and tp.axis_names == ("data", "model")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pmesh.make_mesh()
@@ -155,7 +155,8 @@ def test_solver_mesh_in_one_process(corpus):
     with pytest.raises(ValueError, match="launch 4 ranks, python -m torch.distributed.run "
                                          "--nproc-per-node 4"):
         make_solver_mesh({"parallel": {"n_data": 4}}, "cpu")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="n_data 1 x n_model 2 asks for 2 ranks, but this "
+                                         "process runs alone: launch 2 ranks"):
         make_solver_mesh({"parallel": {"n_model": 2}}, "cpu")
 
 

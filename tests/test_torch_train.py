@@ -239,7 +239,7 @@ def test_cli_train_loss_falls_at_tf_09(corpus, tmp_path):
 
 def test_cli_train_refuses_missing_cuda_and_dispatches_every_trainer(monkeypatch, tmp_path):
     from ss_asr_tpu_torch.cli import train
-    from ss_asr_tpu_torch.train import lm_trainer, tester
+    from ss_asr_tpu_torch.train import TRAINERS
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA is not available"):
@@ -255,8 +255,10 @@ def test_cli_train_refuses_missing_cuda_and_dispatches_every_trainer(monkeypatch
                 return lambda: calls.append(method)
         return Stub
 
-    monkeypatch.setattr(lm_trainer, "CHARLMTrainer", stub("CHARLMTrainer"))
-    monkeypatch.setattr(tester, "ASRTester", stub("ASRTester"))
+    # the CLI dispatches through the registry, as the JAX CLI does
+    for kind, cls in (("LMTrainer", "CHARLMTrainer"), ("CHARLMTrainer", "CHARLMTrainer"),
+                      ("ASRTester", "ASRTester")):
+        monkeypatch.setitem(TRAINERS, kind, stub(cls))
     conf = str(ROOT / "conf" / "default.yaml")
     steps = ["load_data", "set_model", "exec", "close"]
     for kind, cls in (("LMTrainer", "CHARLMTrainer"), ("CHARLMTrainer", "CHARLMTrainer"),
@@ -285,19 +287,19 @@ def test_keep_snapshots_prunes_to_the_newest(corpus, tmp_path):
     assert [s for s, _ in ckpt.list_snapshots(t.ckpdir, "asr")] == [1, 2]
 
 
+# the ids name what each case raised before tensor parallelism was ported
 @pytest.mark.parametrize("par,refused", [({"n_data": 2}, ValueError),
-                                         ({"n_model": 2}, NotImplementedError),
-                                         ({"n_data": "auto"}, None)])
+                                         ({"n_model": 2}, ValueError),
+                                         ({"n_data": "auto"}, None)],
+                         ids=["par0-ValueError", "par1-NotImplementedError", "par2-None"])
 def test_more_than_one_device_is_refused(corpus, tmp_path, par, refused):
-    """One process asked for ``n_data: 2`` is told to launch 2 ranks;
-    tensor parallelism stays left out; ``n_data: auto`` counts the ranks:
-    one process trains alone (data parallelism: test_torch_dp.py)."""
+    """One process asked for ``n_data: 2`` or ``n_model: 2`` is told to
+    launch 2 ranks; ``n_data: auto`` counts the ranks: one process trains
+    alone (data parallelism: test_torch_dp.py; tensor parallelism:
+    test_torch_tp.py)."""
     config = {**copy.deepcopy(corpus), "parallel": par}
     if refused is ValueError:
         with pytest.raises(ValueError, match="launch 2 ranks"):
-            ASRTrainer(config, _paras(make_paras, tmp_path, "par"), device="cpu")
-    elif refused is NotImplementedError:
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
             ASRTrainer(config, _paras(make_paras, tmp_path, "par"), device="cpu")
     else:
         t = ASRTrainer(config, _paras(make_paras, tmp_path, "par"), device="cpu")

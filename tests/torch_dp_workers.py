@@ -122,6 +122,7 @@ def asr_loops(rank, world, dev, tmp, configs):
             "train_loss": [v for k, v in logs if k == "train_loss"],
             "eval_loss": [v for k, v in logs if k == "eval_loss"],
             "eval_cer": [v for k, v in logs if k == "eval_cer"],
+            "eval_acc": [v for k, v in logs if k == "eval_acc"],
             "step": t.tr.step, "n_local_batches": len(t.train_ds), "is_writer": t.is_writer,
             "host_shard": t.host_shard, "params": t.params_tree(),
             "resumed_step": r.tr.step, "loaded": r.loaded_ckpt, "resumed": r.params_tree(),
