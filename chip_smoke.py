@@ -24,8 +24,9 @@ Phases, in order; any failure exits non-zero:
      large EOS bias, so every row takes the early exit at step 0; and the
      cluster route by shape timed against the one-row kernel at B = 16 and
      the server's B = 8;
-   * beam_decode and beam_decode_lm (K = 3 and 8, B = 16, S = 64) against
-     beam_scan_plain: tokens and parents by the same near-tie rule (the
+   * beam_decode and beam_decode_lm (K = 3, 8 and 16, B = 16, S = 64)
+     against beam_scan_plain, each on the cluster route by shape (its
+     counter); at K = 3 and 8 tokens and parents by the same near-tie rule (the
      gap is the smallest between neighbours among the K + 1 best
      candidates, replayed along the plain path).  A divergent row whose two
      candidates a float64 replay of the plain path puts within 4 float32
@@ -35,11 +36,20 @@ Phases, in order; any failure exits non-zero:
      the same rule on the same inputs (two float32 summation orders: on
      random weights over 200 steps at K = 8 any change of rounding splits
      5-7 rows at float32 ties).  Final scores within 1e-3, done flags and
-     lengths equal on the rows that never diverged; on every row the
-     kernel's own path, replayed through the plain step, has each pick
-     within 1e-3 of the step's K best and ends at the kernel's scores
-     (within 1e-3), done flags and lengths.  With an EOS bias of +50 every
-     beam ends within two steps, equal to the plain frontier;
+     lengths equal on the rows that never diverged.  At K = 16, where
+     float32 ties come every few steps and nearly every row parts from the
+     plain version somewhere in 200 steps, whatever the float32 order, each
+     row that parts must do so at a plain gap below 1e-4, the rows that part
+     other than at a float32 tie (the float64 witness above) number at most
+     2 more than the one-block kernel's (another float32 order) on the same
+     inputs, and the final scores, done flags and lengths are compared on
+     the rows that never part.  At
+     every width, on every row, the kernel's own path, replayed through the
+     plain step, has each pick within 1e-3 of the step's K best and ends at
+     the kernel's scores (within 1e-3), done flags and lengths.  With an EOS
+     bias of +50 every beam ends within two steps, equal to the plain
+     frontier; K8's routes are timed at K = 3 and 8 (B = 16 and 8) and K =
+     16 (B = 16, 8 and 1), the one-block kernel beside each, with the bound;
    * spell_fwd (K9) at the ASR step's shape (B = 32, L = 48, S = 64), the
      TAE step's (B = 64, S = 48) and the alignment shape (B * n = 16, L =
      16), teacher-forced (tf 1.0), scheduled sampling (tf 0.9, draws from a
@@ -260,7 +270,7 @@ F32_TIE_ULPS = 4
 MAX_STEPS = 200
 SR = 22050
 N_REQUESTS = 8
-BEAM_WIDTHS = (3, 8)
+BEAM_WIDTHS = (3, 8, 16)
 SCORE_TOL = 1e-3
 SPELL_TOL = 1e-4
 # (B, L, S): the ASR step, the TAE step (its text memory is at most 48 long), the alignment pass
@@ -698,9 +708,22 @@ def eos_biased(torch, model, bias):
     return m
 
 
+def first_divergence(got, want):
+    """{row: the first step at which two frontiers' tokens or parents
+    differ}; got / want are (toks, parents, ...) numpy [T, B, K]."""
+    neq = ((got[0] != want[0]) | (got[1] != want[1])).any(-1)
+    return {b: int(neq[:, b].nonzero()[0][0]) for b in range(neq.shape[1]) if neq[:, b].any()}
+
+
 def check_beam(torch, rng, model, lm):
     """K8 against beam_scan_plain: the seeded frontier, the early exit, and
-    the times over all 200 steps."""
+    the times over all 200 steps.  K = 3 and 8 by the near-tie rule; K = 16
+    by the rows that part from the plain version other than at a float32
+    tie, at most MAX_NEAR_TIE_ROWS beyond the one-block kernel's count on
+    the same inputs (another float32 order of the same frontier), every
+    parting at a plain near tie, with the final scores compared on the rows
+    that never part.  Every width by the replay of the kernel's own path on
+    every row."""
     import numpy as np
 
     from ss_asr_tpu_torch.models import las
@@ -717,7 +740,7 @@ def check_beam(torch, rng, model, lm):
     with torch.inference_mode():
         enc64 = enc_h.double()
         comp64 = las.attention_precompute(model64.attention, enc64)
-    out = {}
+    out, wide = {}, {}
     for name, use_lm in (("beam_decode", False), ("beam_decode_lm", True)):
         lm_, lm64_ = (lm, lm64) if use_lm else (None, None)
         errs, near_rows, tie_rows = [], 0, 0
@@ -745,18 +768,19 @@ def check_beam(torch, rng, model, lm):
             got, want = [t.cpu().numpy() for t in got_t], [t.cpu().numpy() for t in want_t]
             c64 = []
 
-            def f32_tie(b, d):
-                """The plain and the kernel's candidates at the first slot
-                where row b's step d differs, in float64 along the plain path."""
+            def f32_tie(b, d, front=got):
+                """The plain and the kernel's (``front``'s) candidates at the
+                first slot where row b's step d differs, in float64 along the
+                plain path."""
                 if not c64:
                     with torch.inference_mode():
                         c64.append(replay_frontier(torch, model64, lm64_, 0.5, enc64, comp64,
                                                    enc_lens, *want_t[:2])[0].cpu().numpy())
-                slot = int(((got[0][d, b] != want[0][d, b])
-                            | (got[1][d, b] != want[1][d, b])).nonzero()[0][0])
+                slot = int(((front[0][d, b] != want[0][d, b])
+                            | (front[1][d, b] != want[1][d, b])).nonzero()[0][0])
                 c = c64[0][b, d]
                 mine = c[want[1][d, b, slot] * V + want[0][d, b, slot]]
-                theirs = c[got[1][d, b, slot] * V + got[0][d, b, slot]]
+                theirs = c[front[1][d, b, slot] * V + front[0][d, b, slot]]
                 res = F32_TIE_ULPS * float(np.spacing(np.float32(abs(mine))))
                 err32 = abs(float(plain_c[b, d, want[1][d, b, slot] * V
                                           + want[0][d, b, slot]]) - mine)
@@ -767,9 +791,41 @@ def check_beam(torch, rng, model, lm):
             def steps(f):  # [B, T, 2, K]: each step's tokens and parents
                 return np.stack([f[0], f[1]], -2).transpose(1, 0, 2, 3)
 
-            near, ties, compared = compare_tokens(tag, steps(got), steps(want), gaps, f32_tie)
-            whole = compared.all(1)
-            err = float(np.abs(got[2] - want[2])[whole].max())
+            faults = []  # K = 16: failed after the own path's replay has printed
+            if K <= 8:
+                near, ties, compared = compare_tokens(tag, steps(got), steps(want), gaps, f32_tie)
+                whole = compared.all(1)
+            else:
+                with torch.inference_mode():
+                    one = [t.cpu().numpy() for t in kbeam.beam_device(
+                        model, enc_h, comp_h, enc_lens, K, MAX_STEPS, lm_, 0.5, route=(0, 0))]
+                parted = {}  # route -> (rows that part, rows that part other than at a float32 tie)
+                for who, front in (("cluster", got), ("one-block", one)):
+                    div, off = first_divergence(front, want), []
+                    for b, d in sorted(div.items()):
+                        tie, why = f32_tie(b, d, front)
+                        off += [] if tie else [b]
+                        print(f"{tag} {who}: row {b} parts from the plain version at step {d}, "
+                              f"plain gap {gaps[b, d]:.3e}; {why}"
+                              f"{'' if tie else '; not a float32 tie'}", flush=True)
+                        if gaps[b, d] >= NEAR_TIE:
+                            faults.append(f"{tag} {who}: row {b} parts at step {d} where the "
+                                          f"plain gap is {gaps[b, d]:.3e}")
+                    parted[who] = (div, off)
+                (div, off), (div_one, off_one) = parted["cluster"], parted["one-block"]
+                print(f"{tag}: rows that part from the plain version: the cluster route "
+                      f"{len(div)} of {B}, {len(off)} of them not at a float32 tie; the one-block "
+                      f"kernel {len(div_one)}, {len(off_one)} (at most "
+                      f"{len(off_one) + MAX_NEAR_TIE_ROWS} not at a float32 tie)", flush=True)
+                if len(off) > len(off_one) + MAX_NEAR_TIE_ROWS:
+                    faults.append(f"{tag}: {len(off)} rows part from the plain version other "
+                                  f"than at a float32 tie, more than the one-block kernel's "
+                                  f"{len(off_one)} + {MAX_NEAR_TIE_ROWS}")
+                whole = np.array([b not in div for b in range(B)])
+                wide[name] = {"diverged_rows": len(div), "diverged_off_f32_tie": len(off),
+                              "one_block_diverged_rows": len(div_one),
+                              "one_block_diverged_off_f32_tie": len(off_one)}
+            err = float(np.abs(got[2] - want[2])[whole].max(initial=0.0))
             if not (err <= SCORE_TOL and (got[3] == want[3])[whole].all()
                     and (got[4] == want[4])[whole].all()):
                 fail(f"{tag}: final scores differ by {err} (> {SCORE_TOL}) or done / lengths "
@@ -792,11 +848,14 @@ def check_beam(torch, rng, model, lm):
                   f"score max_abs_err {err:.3e} on {int(whole.sum())} whole rows; the kernel's "
                   f"own path replayed: picks within {pick_err:.3e} of the K best, scores within "
                   f"{path_err:.3e}, done and lengths equal, all {B} rows", flush=True)
+            if faults:
+                fail("; ".join(faults))
             errs.append(max(err, path_err))
-            near_rows += near
-            tie_rows += ties
+            if K <= 8:
+                near_rows += near
+                tie_rows += ties
         out[name] = {"max_abs_err": max(errs), "near_tie_rows": near_rows,
-                     "float32_tie_rows": tie_rows}
+                     "float32_tie_rows": tie_rows, "k16": wide[name]}
 
     # early exit: with an EOS bias of +50 every beam ends within two steps
     ended = eos_biased(torch, model, 50.0)
@@ -838,6 +897,8 @@ def check_beam(torch, rng, model, lm):
             if K == BEAM_WIDTHS[0]:  # the default config's width goes into the JSON
                 out[name].update(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
                                  bound_by=b_by)
+            elif K > 8:
+                out[name]["k16"].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
     beam_routes(torch, running, lm, enc_h, comp_h, enc_lens)
     return out
 
@@ -853,19 +914,23 @@ def beam_routes(torch, model, lm, enc_h, comp_h, enc_lens):
     """K8's routes timed over all MAX_STEPS steps (``model`` never emits EOS):
     the cluster route by shape, the other utterance count a cluster that
     serves the shape, and the one-block kernel, at the kernel phase's
-    batch and at the server batch of 8; then long memory (S = 1000 and 1500,
-    B = 8, K = 3 + LM) on the route by shape and the one-block kernel."""
+    batch and at the server batch of 8 (at K above 8 also at B = 1, a
+    ``?nbest`` request), each batch beside its bound; then long memory (S =
+    1000 and 1500, B = 8, K = 3 + LM) on the route by shape and the
+    one-block kernel."""
     import numpy as np
 
     from ss_asr_tpu_torch.models import las
     from ss_asr_tpu_torch.ops.kernels import beam as kbeam
+    from ss_asr_tpu_torch.ops.kernels.decode import lm_operands, speller_operands
 
     cfg = model.cfg
     H, F, M, V = cfg.decoder_state_size, cfg.enc_out_dim, cfg.mlp_out_size, cfg.vocab_size
     HL = lm.cfg.hidden_size
+    ws, lm_ws = speller_operands(model, enc_h.device), lm_operands(lm, enc_h.device)
     for K in BEAM_WIDTHS:
         for lm_ in (None, lm):
-            for Bn in (B, N_REQUESTS):
+            for Bn in (B, N_REQUESTS) + ((1,) if K > 8 else ()):
                 mem = tuple(t[:Bn].contiguous() for t in (enc_h, comp_h, enc_lens))
                 S = mem[0].shape[1]
                 hl = HL if lm_ else 0
@@ -877,10 +942,15 @@ def beam_routes(torch, model, lm, enc_h, comp_h, enc_lens):
                 with torch.inference_mode():
                     times = {r: cuda_ms(torch, lambda: kbeam.beam_device(
                         model, *mem, K, MAX_STEPS, lm_, 0.5, route=r)) for r in routes}
+                use = lm_ws if lm_ is not None else None
+                # inputs once; the int32 tokens and parents and the three [B, K] outputs once
+                b_ms, b_by = bound(Bn * K * MAX_STEPS * speller_row_ops(ws, S, use),
+                                   nbytes(*mem, *ws, *(use or ())) + 4 * Bn * K * (2 * MAX_STEPS + 3))
                 print(f"beam K={K} lm={lm_ is not None} B={Bn} S={S} {MAX_STEPS} steps, route "
                       f"(C, U) by shape {by_shape}: " + ", ".join(
                           f"{r} {ms:.3f} ms ({1e3 * ms / MAX_STEPS:.1f} us/step)"
-                          for r, ms in times.items()), flush=True)
+                          for r, ms in times.items()) + f"; bound {b_ms:.4f} ms ({b_by})",
+                      flush=True)
     rng = np.random.default_rng(SEED + 7)
     for S in (1000, 1500):
         enc = torch.from_numpy(rng.standard_normal((N_REQUESTS, S, F)).astype("float32")).to(DEVICE)
@@ -1139,7 +1209,10 @@ def default_routes(torch, t, config, paths, sig, long_sig, stream_sig, new_asr_t
 
     body = wav_bytes(sig, SR)
     y = read_wav(io.BytesIO(body))[1]
-    want = t.transcribe_fbank_detailed(compute_fbank(y, SR, device=DEVICE), n_best=3)[0]
+    fb = compute_fbank(y, SR, device=DEVICE)
+    want = t.transcribe_fbank_detailed(fb, n_best=3)[0]
+    # ?nbest above 8 decodes with the 16-row cluster variant
+    want16 = t.transcribe_fbank_detailed(fb, n_best=16)[0]
     long_body = wav_bytes(long_sig, SR)
     y_long = read_wav(io.BytesIO(long_body))[1]
     want_long = t.transcribe_long(y_long, SR)
@@ -1164,6 +1237,15 @@ def default_routes(torch, t, config, paths, sig, long_sig, stream_sig, new_asr_t
                   for g, h in zip(obj["hypotheses"], want)), (code, obj))
         print(f"serve default: ?detail=1&nbest=3 200, {len(want)} hypotheses equal the direct "
               f"call (best {len(want[0].text)} chars, score {want[0].score:.3f})", flush=True)
+
+    def detail16(post):
+        code, obj = post("/transcribe?detail=1&nbest=16", body)
+        check("?detail=1&nbest=16", code == 200 and len(want16) == 16
+              and [h["text"] for h in obj["hypotheses"]] == [h.text for h in want16] and all(
+                  abs(g["score"] - h.score) <= 1e-4 for g, h in zip(obj["hypotheses"], want16)),
+              (code, obj))
+        print(f"serve default: ?detail=1&nbest=16 200, {len(want16)} hypotheses equal the direct "
+              f"call (best {len(want16[0].text)} chars, score {want16[0].score:.3f})", flush=True)
 
     def long(post):
         t0 = time.perf_counter()
@@ -1195,7 +1277,8 @@ def default_routes(torch, t, config, paths, sig, long_sig, stream_sig, new_asr_t
               "new checkpoint", flush=True)
 
     dec = ("fbank", "lstm_fwd", "beam_decode_lm")
-    return [("?detail", detail, dec + ("spell_fwd",)), ("?long", long, dec),
+    return [("?detail", detail, dec + ("spell_fwd",)),
+            ("?nbest=16", detail16, dec + ("spell_fwd",)), ("?long", long, dec),
             ("/stream", stream, dec), ("/reload", reload, dec)]
 
 
@@ -3959,6 +4042,7 @@ def main() -> None:
                 **({"also_replaces": covers[name]} if name in covers else {}),
                 **({"bound_f32_ms": results[name]["bound_f32_ms"]}
                    if "bound_f32_ms" in results[name] else {}),
+                **({"k16": results[name]["k16"]} if "k16" in results[name] else {}),
                 **({"cluster_launches": cluster_launches[name]} if name in cluster_launches
                    else {})}
                for name, (src, rep) in replaces.items()]

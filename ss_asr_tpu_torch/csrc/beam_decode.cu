@@ -17,17 +17,18 @@
 // Two routes; the shape decides (ops/kernels/beam.py::beam_route).
 //
 // The cluster route (beam_cluster_kernel). A thread-block cluster of C CTAs
-// decodes U utterances (rows = U x K beams, each K padded to 4 or 8).
-// CTA c owns 128 = 4H / C gate columns (so C = H / 32, at most 8): the i, f,
-// g, o columns of H / C units
+// decodes U utterances: rows = U x RB beams, RB = K rounded up to 4, 8 or 16;
+// one or two utterances of at most 8 beams share 4 or 8 rows, an utterance
+// of 9-16 beams takes 16 rows alone. CTA c owns 128 = 4H / C gate columns
+// (so C = H / 32, at most 8): the i, f, g, o columns of H / C units
 // of both speller cells and the r, z, n columns of HL / C units of both LM
 // GRUs, and streams just those weight panels ([rows][128], packed per CTA by
 // the wrapper) from L2 through a cp.async ring of 3 to 8 stages of 32 rows
 // that runs on across steps (a step's weights are the same every step); each
 // weight is read once a step from shared memory for all rows. Replicated in
-// every CTA: the inputs (emb, context, h1, h2 and the LM's states, double-
-// buffered by step parity); local: the cells of its own units; resident: its
-// columns of phi, its rows of ct_w and its columns of the LM's output layer.
+// every CTA: the inputs (emb, context, h1, h2 and the LM's states); local:
+// the cells of its own units; resident: its columns of phi, its rows of ct_w
+// and its columns of the LM's output layer.
 // A step, with one cluster barrier after each phase:
 //   (a) its queries, all-gathered; the first GRU cell of its LM units.
 //   (b) the attention over its range of memory steps (eight lanes per step
@@ -40,18 +41,42 @@
 //   (d) the first LSTM cell of its units, h1 all-gathered.
 //   (e) the second cell, h2 all-gathered; the logits' partial sums over its
 //       units go to CTA 0.
-//   (f) CTA 0 adds the partials, runs the fused log-probs, the top K of each
-//       utterance (lax.top_k's rule), the bookkeeping and the early exit, and
+//   (f) CTA 0 adds the partials, runs the fused log-probs (a warp a row), the
+//       top K of each utterance, the bookkeeping and the early exit, and
 //       broadcasts each row's token and parent; every CTA then regathers its
 //       states by parent. The steps of a finished utterance write SOS tokens
 //       and identity parents, as the one-block kernel's early exit does.
+// The top K keeps lax.top_k's order (the larger score; on equal scores the
+// lower flat index r * V + v) without serial rounds: every candidate counts
+// the better ones of its own beam, and those with fewer than K survive, K a
+// beam, sorted; every survivor then adds, for each other beam, how many of
+// its survivors are better (a binary search of a sorted prefix), and the
+// survivor whose count is j < K is the j-th pick. A candidate of the top K
+// has fewer than K better ones anywhere, so it survives, and so do all the
+// candidates better than it: its count is its rank.
+// Shared memory: one buffer, by phase, holds the context partials (b)-(c)
+// and CTA 0's logit partials (e)-(f); another the queries (a)-(b) and CTA
+// 0's candidates (f). At 4 and 8 rows h1, h2 and the GRU states are double-
+// buffered by step parity, so a cell writes the next step's copy while the
+// cluster still reads this one's. 16 rows' double buffers do not fit a CTA
+// (the flagship width with the LM: 68,032 floats of replicated state and
+// buffers against 58,112 less 13,824 for three ring stages), so the 16-row
+// variant keeps one copy of each and the context in the partials' buffer
+// (40,352 floats with the LM, 33,312 without: three and five ring stages at
+// S = 64), and a split cluster barrier guards each all-gather into a buffer
+// that the cluster may still read: the arrive once this CTA has read it
+// (after its product, or the context merge), the wait before the remote
+// writes, the new values staged in this CTA's gate sums between the two.
 // What bounds it: each SM streams its 0.9 MB (C = 8) of weights a step, and
 // the L2 bytes one SM keeps in flight set that pace; then the six barriers
-// and the attention's L2 latency.
+// (eleven with the LM at 16 rows, counting the split ones) and the
+// attention's L2 latency. At 16 rows a cluster holds one utterance and the
+// card 15 clusters of 8, so a batch of 16 runs in two waves.
 //
-// The one-block route (beam_decode_kernel), for shapes no cluster serves (K
-// above 8, an H other than 32, 64, 128 or 256, a wide LM, ...). One
-// block of 1024 threads decodes one utterance (grid = B). The K
+// The one-block route (beam_decode_kernel), for shapes no cluster serves (an
+// H other than 32, 64, 128 or 256, F or HL not in whole ring stages, a wide
+// LM, a vocabulary smaller than K, a plan that does not fit shared memory).
+// One block of 1024 threads decodes one utterance (grid = B). The K
 // beams' states live in shared memory k-major, x[k * RB + r] for beam r
 // (RB = K rounded up to 4, 8 or 16; rows past K are padding that stays
 // zero), so every product reads each weight ONCE per step for all K beams:
@@ -534,33 +559,43 @@ constexpr int kKC = 32;         // stream rows a ring stage
 constexpr int kSW = 128;
 constexpr int kStage = kKC * (kSW + 16);  // floats of a ring stage
 constexpr int kMaxStages = 8;
-// rows (utterances x beams, padded) a cluster decodes: 16 rows' replicated
-// states alone (68 K floats at the flagship width) outgrow a block's 58 K
-constexpr int kMaxRows = 8;
+// rows (utterances x beams, each K padded to 4, 8 or 16) a cluster decodes:
+// up to kMaxRows / 2 for one or two utterances, kMaxRows for one utterance
+constexpr int kMaxRows = 16;
+
+// The 16-row variant keeps one copy of h1, h2 and the GRU states, and the
+// context in the partials' buffer (see the header).
+template <int NR>
+constexpr bool kSingleBuffered = NR > kMaxRows / 2;
 
 // A cluster CTA's shared memory (offsets in floats) and the shape it serves.
 struct CPlan {
   int H, F, M, V, HL, S, K, C, U, RB, NR, Hc, Fc, Mc, Vc, HLc, Sc, nst, rows;
-  int emb, ctx, h1, h2, lx, g1, g2, c1, c2, q, phi, ctw, low, gbuf, slots, stats, lgs, logit,
-      llogit, cand, small, att, ring, total;
+  int emb, ctx, h1, h2, lx, g1, g2, c1, c2, q, phi, ctw, low, gbuf, slots, stats, logit, llogit,
+      small, att, ring, total;
 };
 
 inline int up4(int n) { return (n + 3) & ~3; }
 
 // The plan for C CTAs over U utterances of K beams (rows = U x RB, RB = K
-// rounded up to 4 or 8), or total = 0 where the route does not serve.
+// rounded up to 4, 8 or 16), or total = 0 where the route does not serve.
+// Mirrored by ops/kernels/beam.py::cluster_plan; ss_beam_cluster_plan below
+// reports it.
 CPlan cluster_plan(const Beam& p, int HL, int C, int U, int max_floats) {
   CPlan P{};
   P.H = p.H, P.F = p.F, P.M = p.M, P.V = p.V, P.HL = HL, P.S = p.S, P.K = p.K, P.C = C, P.U = U;
-  P.RB = p.K <= 4 ? 4 : 8;
+  P.RB = p.K <= 4 ? 4 : (p.K <= 8 ? 8 : 16);
   P.NR = U * P.RB;
+  const bool single = P.NR > kMaxRows / 2;
+  // the 16-row variant stages a CTA's context features (F / C of them) in its gate sums
   const bool ok = (C == 1 || C == 2 || C == 4 || C == 8) && U >= 1 && p.K >= 1 &&
-                  p.K <= kMaxRows && P.NR <= kMaxRows && 4 * p.H == kSW * C &&
-                  p.F % kKC == 0 && p.F % (4 * C) == 0 && p.M % C == 0 && p.M % 4 == 0 &&
+                  p.K <= kMaxRows && P.NR <= (U == 1 ? kMaxRows : kMaxRows / 2) &&
+                  p.K <= p.V && 4 * p.H == kSW * C && p.F % kKC == 0 && p.F % (4 * C) == 0 &&
+                  (!single || p.F / C <= kSW) && p.M % C == 0 && p.M % 4 == 0 &&
                   (HL == 0 || (HL % kKC == 0 && HL % C == 0 && 6 * (HL / C) <= kSW &&
                                (3 * HL / C) % 4 == 0));
   if (!ok) return P;
-  const int NR = P.NR, H = p.H;
+  const int NR = P.NR, H = p.H, nb = single ? 1 : 2;  // nb: copies of h1, h2, g1, g2
   P.Hc = H / C, P.Fc = p.F / C, P.Mc = p.M / C, P.Vc = (p.V + C - 1) / C;
   P.HLc = HL / C, P.Sc = (p.S + C - 1) / C;
   P.rows = 2 * HL + 2 * H + p.F + 2 * H;  // GRU1, GRU2, cell 1, cell 2
@@ -570,13 +605,18 @@ CPlan cluster_plan(const Beam& p, int HL, int C, int U, int max_floats) {
     o += up4(n);
     return r;
   };
-  P.emb = take(H * NR), P.ctx = take(p.F * NR), P.h1 = take(2 * H * NR), P.h2 = take(2 * H * NR);
-  P.lx = take(HL * NR), P.g1 = take(2 * HL * NR), P.g2 = take(2 * HL * NR);
-  P.c1 = take(P.Hc * NR), P.c2 = take(P.Hc * NR), P.q = take(p.M * NR), P.phi = take(H * P.Mc);
-  P.ctw = take(P.Hc * p.V), P.low = take(HL * P.Vc);
-  P.gbuf = take(kSW * NR), P.slots = take(C * P.Fc * NR), P.stats = take(2 * C * NR);
-  P.lgs = take(C * p.V * NR), P.logit = take(p.V * NR), P.llogit = take(p.V * NR);
-  P.cand = take(NR * p.V), P.small = take(8 * kMaxRows + 32);
+  P.emb = take(H * NR), P.ctx = single ? -1 : take(p.F * NR);
+  P.h1 = take(nb * H * NR), P.h2 = take(nb * H * NR);
+  P.lx = take(HL * NR), P.g1 = take(nb * HL * NR), P.g2 = take(nb * HL * NR);
+  P.c1 = take(P.Hc * NR), P.c2 = take(P.Hc * NR);
+  P.q = take((p.M > p.V ? p.M : p.V) * NR);  // the queries; CTA 0's candidates in (f)
+  P.phi = take(H * P.Mc), P.ctw = take(P.Hc * p.V), P.low = take(HL * P.Vc);
+  P.gbuf = take(kSW * NR);
+  // the context partials (b)-(c), CTA 0's logit partials (e)-(f); at 16 rows the context (c)-(d)
+  P.slots = take((p.F > C * p.V ? p.F : C * p.V) * NR);
+  if (single) P.ctx = P.slots;
+  P.stats = take(2 * C * NR);
+  P.logit = take(p.V * NR), P.llogit = take(p.V * NR), P.small = take(8 * kMaxRows + 32);
   P.att = -1;
   if (o + up4(P.Sc * NR) + 3 * kStage <= max_floats) P.att = take(P.Sc * NR);
   P.ring = o;
@@ -699,9 +739,10 @@ beam_cluster_kernel(Beam p, CharLM lm, CPlan P, const float* __restrict__ wstrea
   const int H = P.H, F = P.F, M = P.M, V = P.V, HL = P.HL, S = P.S, K = P.K;
   const int U = P.U, RB = P.RB, Hc = P.Hc, Fc = P.Fc, Mc = P.Mc, Vc = P.Vc, HLc = P.HLc;
   const int B = p.B, b0 = blockIdx.y * U;  // the cluster's utterances b0 .. b0 + U - 1
+  constexpr bool kSingle = kSingleBuffered<NR>;
   float* emb_x = sm + P.emb;  // [H][NR] the embedding of each row's last token
-  float* ctx = sm + P.ctx;    // [F][NR] the context
-  float* h1 = sm + P.h1;      // [2][H][NR] the first cell's h: this step's, the next one's
+  float* ctx = sm + P.ctx;    // [F][NR] the context (at 16 rows in the partials' buffer)
+  float* h1 = sm + P.h1;      // [2][H][NR] the first cell's h by step parity ([H][NR] at 16 rows)
   float* h2 = sm + P.h2;      // [2][H][NR]
   float* lx = sm + P.lx;      // [HL][NR] the LM's input embedding
   float* g1 = sm + P.g1;      // [2][HL][NR] the GRU states
@@ -715,10 +756,10 @@ beam_cluster_kernel(Beam p, CharLM lm, CPlan P, const float* __restrict__ wstrea
   float* gbuf = sm + P.gbuf;  // [kSW][NR] a product's gate sums
   float* slots = sm + P.slots;  // [C][Fc][NR] the context partials the cluster owes this CTA
   float* stats = sm + P.stats;  // [2][C][NR] their max and sum of exp
-  float* lgs = sm + P.lgs;      // [C][V][NR] (CTA 0) the logit partials of each CTA's units
+  float* lgs = slots;           // [C][V][NR] (CTA 0, e-f) the logit partials of each CTA's units
   float* logit = sm + P.logit;  // [V][NR] (CTA 0)
   float* llogit = sm + P.llogit;  // [V][NR] (CTA 0) the LM's logits
-  float* cand = sm + P.cand;      // [U][RB][V] (CTA 0) each beam's candidates
+  float* cand = q;                // [U][RB][V] (CTA 0, f) each beam's candidates
   int* tok = reinterpret_cast<int*>(sm + P.small);  // [kMaxRows] the step's token of each row
   int* par = tok + kMaxRows;       // [kMaxRows] its parent beam
   int* done = par + kMaxRows;      // [kMaxRows] (CTA 0)
@@ -764,7 +805,8 @@ beam_cluster_kernel(Beam p, CharLM lm, CPlan P, const float* __restrict__ wstrea
   cluster.sync();  // every CTA's buffers are set before the first remote write
 
   for (int t = 0; t <= p.max_steps; ++t) {
-    const int cur = t & 1, nxt = cur ^ 1;
+    // this step's states and the next one's (one copy at 16 rows)
+    const int cur = kSingle ? 0 : t & 1, nxt = kSingle ? 0 : cur ^ 1;
     const float* h1c = h1 + cur * H * NR;
     float* h1n = h1 + nxt * H * NR;
     const float* h2c = h2 + cur * H * NR;
@@ -787,8 +829,21 @@ beam_cluster_kernel(Beam p, CharLM lm, CPlan P, const float* __restrict__ wstrea
         for (int dst = 0; dst < C; ++dst) cluster.map_shared_rank(q, dst)[(c * Mc + m) * NR + r] = v;
       }
     }
-    // a GRU cell of this CTA's units from gbuf (input r z n, then hidden r z n)
+    // dst[(u0 + j) * NR + r] = gbuf[j * NR + r] in every CTA, for j < n: the new
+    // values a phase staged in gbuf, each over the first of the sums it was
+    // computed from (the same thread reads and writes it); single-buffered, after
+    // the cluster barrier's wait says that no CTA reads dst any more
+    auto all_gather = [&](float* dst, int u0, int n) {
+      for (int i = tid; i < n * NR; i += kBT) {
+        const float v = gbuf[i];
+        for (int d = 0; d < C; ++d) cluster.map_shared_rank(dst, d)[u0 * NR + i] = v;
+      }
+    };
+    // a GRU cell of this CTA's units from gbuf (input r z n, then hidden r z n), to
+    // every CTA; single-buffered (hn is hc) it arrives now that its product has read
+    // hc and writes after the wait
     auto gru_cell = [&](const float* hc, float* hn, const float* bi, const float* bh) {
+      if (kSingle) ss::cluster_arrive();
       for (int i = tid; i < HLc * NR; i += kBT) {
         const int j = i / NR, r = i - j * NR, u = c * HLc + j;
         float hv = 0.f;
@@ -804,8 +859,10 @@ beam_cluster_kernel(Beam p, CharLM lm, CPlan P, const float* __restrict__ wstrea
           const float nn = tanhf(a[2] + rg_ * h[2]);
           hv = (1.f - z) * nn + z * hc[u * NR + r];
         }
-        for (int dst = 0; dst < C; ++dst) cluster.map_shared_rank(hn, dst)[u * NR + r] = hv;
+        gbuf[i] = hv;
       }
+      if (kSingle) ss::cluster_wait();
+      all_gather(hn, c * HLc, HLc);
     };
     if (kUseLM) {
       stream_product<NR>(rg, HL, [&](int k0, int col4) {
@@ -846,16 +903,13 @@ beam_cluster_kernel(Beam p, CharLM lm, CPlan P, const float* __restrict__ wstrea
         acc[j] += __shfl_xor_sync(group, acc[j], 2);
         acc[j] += __shfl_xor_sync(group, acc[j], 4);
       }
-      if (part < RB) {
-        float v = acc[0];
+      // lane `part` of the eight writes the rows j = part (mod 8)
 #pragma unroll
-        for (int j = 1; j < NR; ++j) v = part == j ? acc[j] : v;
-        att[sl * NR + u * RB + part] = ok ? v : -INFINITY;
-      }
+      for (int j = 0; j < NR; ++j)
+        if (j < RB && (j & 7) == part) att[sl * NR + u * RB + j] = ok ? acc[j] : -INFINITY;
     }
     __syncthreads();
-    if (warp < NR) {
-      const int r = warp;
+    for (int r = warp; r < NR; r += kBW) {
       float mx = -INFINITY;
       for (int sl = lane; sl < ns; sl += 32) mx = fmaxf(mx, att[sl * NR + r]);
       mx = ss::warp_max(mx);
@@ -924,7 +978,8 @@ beam_cluster_kernel(Beam p, CharLM lm, CPlan P, const float* __restrict__ wstrea
     cluster.sync();
 
     // (c) the context of this CTA's features, merged over the cluster's partials, to
-    // every CTA; the LM's logits of this CTA's columns, to CTA 0
+    // every CTA; the LM's logits of this CTA's columns, to CTA 0. At 16 rows the
+    // context overwrites the partials: staged in gbuf until every CTA has merged.
     for (int i = tid; i < Fc * NR; i += kBT) {
       const int fo = i / NR, r = i - fo * NR;
       float mx = -INFINITY;
@@ -939,9 +994,12 @@ beam_cluster_kernel(Beam p, CharLM lm, CPlan P, const float* __restrict__ wstrea
         }
       }
       const float v = den > 0.f ? num / den : 0.f;
-      for (int dst = 0; dst < C; ++dst)
-        cluster.map_shared_rank(ctx, dst)[(c * Fc + fo) * NR + r] = v;
+      if (kSingle) gbuf[i] = v;
+      else
+        for (int dst = 0; dst < C; ++dst)
+          cluster.map_shared_rank(ctx, dst)[(c * Fc + fo) * NR + r] = v;
     }
+    if (kSingle) ss::cluster_arrive();
     if (kUseLM) {
       for (int i = tid >> 3; i < Vc * NR; i += kBT / 8) {  // eight lanes an item
         const int vo = i / NR, r = i - vo * NR, v = c * Vc + vo, part = tid & 7;
@@ -954,14 +1012,20 @@ beam_cluster_kernel(Beam p, CharLM lm, CPlan P, const float* __restrict__ wstrea
         if (part == 0 && v < V) cluster.map_shared_rank(llogit, 0)[v * NR + r] = acc + lm.out_b[v];
       }
     }
+    if (kSingle) {
+      ss::cluster_wait();
+      all_gather(ctx, c * Fc, Fc);
+    }
     cluster.sync();
 
     // (d) the first cell: [emb | context | h1] against this CTA's gate columns
     stream_product<NR>(rg, 2 * H + F, [&](int k0, int) {
       return k0 < H ? emb_x + k0 * NR : k0 < H + F ? ctx + (k0 - H) * NR : h1c + (k0 - H - F) * NR;
     }, gbuf);
-    // an LSTM cell of this CTA's units from gbuf (i f g o blocks of Hc columns)
+    // an LSTM cell of this CTA's units from gbuf (i f g o blocks of Hc columns), h to
+    // every CTA (single-buffered: after the cluster's reads, as gru_cell)
     auto lstm_cell = [&](float* cc, float* hn, const float* bias) {
+      if (kSingle) ss::cluster_arrive();
       for (int i = tid; i < Hc * NR; i += kBT) {
         const int j = i / NR, r = i - j * NR, u = c * Hc + j;
         float hv = 0.f, cv = 0.f;
@@ -973,8 +1037,10 @@ beam_cluster_kernel(Beam p, CharLM lm, CPlan P, const float* __restrict__ wstrea
           hv = ss::sigmoid(a[3]) * tanhf(cv);
         }
         cc[j * NR + r] = cv;
-        for (int dst = 0; dst < C; ++dst) cluster.map_shared_rank(hn, dst)[u * NR + r] = hv;
+        gbuf[i] = hv;
       }
+      if (kSingle) ss::cluster_wait();
+      all_gather(hn, c * Hc, Hc);
     };
     lstm_cell(c1, h1n, p.b1);
     cluster.sync();
@@ -1003,8 +1069,8 @@ beam_cluster_kernel(Beam p, CharLM lm, CPlan P, const float* __restrict__ wstrea
         logit[i] = acc;
       }
       __syncthreads();
-      if (warp < NR && live(warp) && !udone[warp / RB]) {
-        const int r = warp;
+      for (int r = warp; r < NR; r += kBW) {  // a warp a row
+        if (!live(r) || udone[r / RB]) continue;
         float mxa, lsa, mxl = 0.f, lsl = 0.f;
         warp_max_sum(logit + r, V, NR, mxa, lsa);
         lsa = logf(lsa);
@@ -1029,38 +1095,60 @@ beam_cluster_kernel(Beam p, CharLM lm, CPlan P, const float* __restrict__ wstrea
       }
       __syncthreads();
       if (t < p.max_steps) {
-        // top K of each utterance's K * V candidates: K rounds of a first-occurrence
-        // argmax; a finished utterance keeps SOS tokens and identity parents
-        if (warp < U) {
-          const int u = warp;
-          const float* cu = cand + u * RB * V;
-          for (int j = 0; j < K; ++j) {
-            float best = -INFINITY;
-            int best_i = INT_MAX;
-            if (!udone[u]) {
-              for (int i = lane; i < K * V; i += 32) {
-                const float v = cu[i];
-                if (v > best) {
-                  best = v;
-                  best_i = i;
-                }
-              }
-              ss::warp_argmax(best, best_i);
+        // top K of each utterance's K * V candidates (see the header): each candidate's
+        // rank among its beam's V, the K best of each beam kept in rank order ...
+        float* sv = gbuf;                                    // [U][RB][RB] their scores
+        int* si = reinterpret_cast<int*>(gbuf + NR * RB);    // [U][RB][RB] their flat indices
+        for (int i = tid; i < U * K * V; i += kBT) {
+          const int u = i / (K * V), fi = i - u * K * V, r = fi / V, v = fi - r * V;
+          if (udone[u]) continue;
+          const float* row = cand + (u * RB + r) * V;
+          const float x = row[v];
+          int rank = 0;
+          for (int v2 = 0; v2 < V; ++v2) {
+            const float y = row[v2];
+            rank += y > x || (y == x && v2 < v);
+          }
+          if (rank < K) {
+            sv[(u * RB + r) * RB + rank] = x;
+            si[(u * RB + r) * RB + rank] = fi;
+          }
+        }
+        __syncthreads();
+        // ... then each survivor's rank over the utterance's K * K: its own beam's
+        // better ones, and each other beam's, a prefix of its sorted survivors (on equal
+        // scores a lower beam's candidate is the better one)
+        for (int i = tid; i < U * K * K; i += kBT) {
+          const int u = i / (K * K), r = (i - u * K * K) / K, j = i - u * K * K - r * K;
+          if (udone[u]) continue;
+          const float x = sv[(u * RB + r) * RB + j];
+          int rank = j;
+          for (int r2 = 0; r2 < K && rank < K; ++r2) {
+            if (r2 == r) continue;
+            const float* o = sv + (u * RB + r2) * RB;
+            int lo = 0, hi = K;
+            while (lo < hi) {
+              const int mid = (lo + hi) >> 1;
+              const float y = o[mid];
+              if (y > x || (y == x && r2 < r)) lo = mid + 1;
+              else hi = mid;
             }
-            if (lane == 0) {
-              const int r = u * RB + j;
-              if (udone[u]) {
-                tscore[r] = score[r];
-                par[r] = j;
-                tok[r] = kSOS;
-              } else {
-                tscore[r] = best;
-                par[r] = best_i / V;
-                tok[r] = best_i % V;
-                cand[u * RB * V + best_i] = -INFINITY;
-              }
-            }
-            __syncwarp();
+            rank += lo;
+          }
+          if (rank < K) {
+            const int fi = si[(u * RB + r) * RB + j], w = u * RB + rank;
+            tscore[w] = x;
+            par[w] = fi / V;
+            tok[w] = fi % V;
+          }
+        }
+        // a finished utterance keeps SOS tokens and identity parents
+        for (int i = tid; i < U * K; i += kBT) {
+          const int u = i / K, j = i - u * K, r = u * RB + j;
+          if (udone[u]) {
+            tscore[r] = score[r];
+            par[r] = j;
+            tok[r] = kSOS;
           }
         }
         __syncthreads();
@@ -1196,6 +1284,7 @@ int launch_plan(const Beam& p, const CharLM& lm, const CPlan& P, const float* ws
                   : launch_cluster<ROWS, false>(p, lm, P, wstream, att_g, st);
   SS_PLAN(4)
   SS_PLAN(8)
+  SS_PLAN(16)
 #undef SS_PLAN
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1263,4 +1352,24 @@ extern "C" int ss_beam_decode_cluster(
   const CPlan P = cluster_plan(p, lm.HL, cluster, utts, max_smem / static_cast<int>(sizeof(float)));
   if (P.total == 0 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
   return launch_plan(p, lm, P, wstream, att, static_cast<cudaStream_t>(stream));
+}
+
+// The cluster route's plan for a shape on this device, as cluster_plan gives
+// it to ss_beam_decode_cluster: out = {floats of shared memory a CTA (0 where
+// the route does not serve), the attention weights in shared memory (1) or in
+// the global scratch (0), ring stages}. The tests hold
+// ops/kernels/beam.py::cluster_plan, its mirror, to it.
+extern "C" int ss_beam_cluster_plan(int H, int F, int M, int V, int HL, int S, int K, int cluster,
+                                    int utts, int device, int* out) {
+  int max_smem = 0;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Beam p{};
+  p.H = H, p.F = F, p.M = M, p.V = V, p.S = S, p.K = K;
+  const CPlan P = cluster_plan(p, HL, cluster, utts, max_smem / static_cast<int>(sizeof(float)));
+  out[0] = P.total;
+  out[1] = P.att >= 0;
+  out[2] = P.nst;
+  return 0;
 }

@@ -48,13 +48,12 @@ LAUNCHES = {"beam_decode": 0, "beam_decode_lm": 0, "beam_decode_cluster": 0,
 #: ``cluster_plan``): the gate columns a CTA owns (its weight stream's
 #: width, 4H / C); the stream rows of one ring stage (at a pitch of the
 #: width + 16 floats); the ring's largest depth; the most rows (utterances x
-#: beams, each K padded to 4 or 8) a cluster decodes, since 16 rows'
-#: replicated states outgrow a block; and the shared memory of an H100
-#: block (floats)
+#: beams, each K padded to 4, 8 or 16) a cluster decodes: one utterance's
+#: 16, or half that for two; and the shared memory of an H100 block (floats)
 STREAM_WIDTH = 128
 STAGE_ROWS = 32
 MAX_STAGES = 8
-CLUSTER_ROWS = 8
+CLUSTER_ROWS = 16
 SMEM_FLOATS = 227 * 1024 // 4
 #: the clusters of each size that an H100 SXM holds at once (one CTA an SM)
 CARD_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15}
@@ -146,31 +145,46 @@ def _up4(n: int) -> int:
 
 def beam_rows(K: int) -> int:
     """The rows a cluster gives each utterance's K beams: K rounded up to
-    4 or 8 (K above 8 takes no cluster)."""
-    return 4 if K <= 4 else 8
+    4, 8 or 16."""
+    return 4 if K <= 4 else 8 if K <= 8 else 16
 
 
 def cluster_plan(H: int, F: int, M: int, V: int, HL: int, S: int, K: int, C: int,
                  U: int) -> Optional[Tuple[int, bool, int]]:
     """The shared memory of a CTA of the cluster route (``cluster_plan`` in
-    ``csrc/beam_decode.cu``) -> ``(floats, attention in shared memory, ring
-    stages)``, or None where the route does not serve the shape: C CTAs own
-    ``STREAM_WIDTH`` = 4H / C gate columns each (so H = 32 C, C <= 8); K <=
-    8 and rows U x ``beam_rows(K)`` <= ``CLUSTER_ROWS``; F and the LM's HL
+    ``csrc/beam_decode.cu``, which ``ss_beam_cluster_plan`` reports) ->
+    ``(floats, attention in shared memory, ring stages)``, or None where the
+    route does not serve the shape: C CTAs own ``STREAM_WIDTH`` = 4H / C
+    gate columns each (so H = 32 C, C <= 8); K <= min(16, V); rows U x
+    ``beam_rows(K)`` at most 8, or 16 for one utterance; F and the LM's HL
     in whole ring stages; the LM's 6 HL / C columns inside the stream's
-    width; a ring of at least 3 stages."""
+    width; a ring of at least 3 stages.
+
+    At 4 and 8 rows h1, h2 and the GRU states are double-buffered by step
+    parity.  The 16-row variant keeps one copy of each and the context in
+    the context partials' buffer, its writes held back by split cluster
+    barriers (its F / C context features staged in the stream's width):
+    at the flagship width (H 256, F 512, M 128, V 50, HL 128, C 8) 40,352
+    floats with the LM and 33,312 without, where double buffers would take
+    68,032 and 56,896 of a block's 58,112 and leave no room for the ring.
+    In every variant the logit partials share the context partials' buffer
+    and the candidates the queries'."""
     SW = STREAM_WIDTH
     NR = U * beam_rows(K)
-    if not (C in CARD_CLUSTERS and U >= 1 and 1 <= K <= CLUSTER_ROWS and NR <= CLUSTER_ROWS
+    single = NR > CLUSTER_ROWS // 2
+    if not (C in CARD_CLUSTERS and U >= 1 and 1 <= K <= min(CLUSTER_ROWS, V)
+            and NR <= (CLUSTER_ROWS if U == 1 else CLUSTER_ROWS // 2)
             and 4 * H == SW * C and F % STAGE_ROWS == 0 and F % (4 * C) == 0
-            and M % C == 0 and M % 4 == 0
+            and (not single or F // C <= SW) and M % C == 0 and M % 4 == 0
             and (HL == 0 or (HL % STAGE_ROWS == 0 and HL % C == 0
                              and 6 * (HL // C) <= SW and (3 * HL // C) % 4 == 0))):
         return None
     Hc, Fc, Mc, Vc, Sc = H // C, F // C, M // C, -(-V // C), -(-S // C)
-    sizes = [H * NR, F * NR, 2 * H * NR, 2 * H * NR, HL * NR, 2 * HL * NR, 2 * HL * NR,
-             Hc * NR, Hc * NR, M * NR, H * Mc, Hc * V, HL * Vc, SW * NR, C * Fc * NR,
-             2 * C * NR, C * V * NR, V * NR, V * NR, NR * V, 8 * CLUSTER_ROWS + 32]
+    nb = 1 if single else 2  # copies of h1, h2 and the GRU states
+    sizes = [H * NR, 0 if single else F * NR, nb * H * NR, nb * H * NR, HL * NR,
+             nb * HL * NR, nb * HL * NR, Hc * NR, Hc * NR, max(M, V) * NR, H * Mc, Hc * V,
+             HL * Vc, SW * NR, max(F, C * V) * NR, 2 * C * NR, V * NR, V * NR,
+             8 * CLUSTER_ROWS + 32]
     fixed = sum(_up4(n) for n in sizes)
     stage = STAGE_ROWS * (SW + 16)
     att_smem = fixed + _up4(Sc * NR) + 3 * stage <= SMEM_FLOATS
@@ -182,15 +196,32 @@ def cluster_plan(H: int, F: int, M: int, V: int, HL: int, S: int, K: int, C: int
     return fixed + nst * stage, att_smem, nst
 
 
+def device_cluster_plan(H: int, F: int, M: int, V: int, HL: int, S: int, K: int, C: int,
+                        U: int, device: torch.device) -> Optional[Tuple[int, bool, int]]:
+    """``cluster_plan`` as ``csrc/beam_decode.cu`` computes it for the card
+    (``ss_beam_cluster_plan``, from the card's shared memory a block), in
+    the same form: what the Python mirror is held to."""
+    import ctypes
+
+    out = (ctypes.c_int * 3)()
+    lib = build.load_library()
+    err = lib.ss_beam_cluster_plan(H, F, M, V, HL, S, K, C, U, torch.device(device).index or 0,
+                                   ctypes.addressof(out))
+    build.check(err, "ss_beam_cluster_plan")
+    return (out[0], bool(out[1]), out[2]) if out[0] else None
+
+
 def beam_route(H: int, F: int, M: int, V: int, HL: int, S: int, K: int, B: int
                ) -> Tuple[int, int]:
     """The route of ``beam_device`` on the card, from the shape alone ->
     ``(C, U)``: a cluster of C = 4H / ``STREAM_WIDTH`` CTAs over U
     utterances; or ``(0, 0)``, the kernel of one block per utterance, where
-    no cluster serves (K above 8, H other than 32, 64, 128 or 256, a wide
-    LM, ...).  U
-    is the smallest that keeps every cluster resident at once, else the
-    largest that ``CLUSTER_ROWS`` allows."""
+    ``cluster_plan`` serves no U (H other than 32, 64, 128 or 256, F or HL
+    not in whole ring stages, a wide LM, V below K, a plan past shared
+    memory).  U is the smallest that keeps every cluster resident at once,
+    else the largest that serves: K 5-16 take one utterance a cluster, and
+    at K 9-16 a batch past 15 (the clusters of 8 an H100 holds) runs in
+    waves."""
     C = 4 * H // STREAM_WIDTH if 4 * H % STREAM_WIDTH == 0 else 0
     fits = [U for U in (1, 2) if cluster_plan(H, F, M, V, HL, S, K, C, U) is not None]
     if not fits:

@@ -67,6 +67,9 @@ SIGNATURES = {
     # the packed weight stream, cluster, utterances a cluster, device, stream
     "ss_beam_decode_cluster": [_P] * 19 + [_I] * 8 + [_P] * 11 + [_I, ctypes.c_float, _P, _I, _I,
                                                                   _I, _P],
+    # H, F, M, V, HL, S, K, cluster, utterances a cluster, device, out (int[3]: floats,
+    # attention in shared memory, ring stages)
+    "ss_beam_cluster_plan": [_I] * 10 + [_P],
     # enc, comp, lens, tf, gumbel, teacher_emb, the 10 speller weights,
     # logits, a, h1s, c1s, h2s, c2s, fed, g1s, g2s, B, S, F, M, H, V, L, rows,
     # device, stream

@@ -75,7 +75,7 @@ def _assert_frontier_equal(got, want):
             np.testing.assert_array_equal(g, w, err_msg=name)
 
 
-@pytest.mark.parametrize("K", [1, 3, 8])
+@pytest.mark.parametrize("K", [1, 3, 8, 16])
 @pytest.mark.parametrize("use_lm", [False, True], ids=["beam", "beam+lm"])
 def test_frontier_matches_xla_scan(rng, K, use_lm):
     jp, model, jlm, lm = _models(K)
@@ -87,7 +87,7 @@ def test_frontier_matches_xla_scan(rng, K, use_lm):
     _assert_frontier_equal(got, want)
 
 
-@pytest.mark.parametrize("K,use_lm", [(1, False), (3, True), (8, False)])
+@pytest.mark.parametrize("K,use_lm", [(1, False), (3, True), (8, False), (16, False), (16, True)])
 def test_frontier_matches_pallas_kernel(rng, K, use_lm):
     jp, model, jlm, lm = _models(10 + K)
     x, xl = _inputs(rng, [16, 11])
@@ -262,16 +262,19 @@ def cluster_step_model(model, lm, enc, comp, lens, last, state, lm_state, C):
     return logits, lm_logits, ((h1n, c1n), (h2n, c2n)), (g1n, g2n)
 
 
+@pytest.mark.parametrize("rows", [6, 16], ids=["6rows", "16rows"])
 @pytest.mark.parametrize("H,enc_state,M,HL,C", [(64, 32, 32, 32, 2), (128, 64, 32, 32, 4),
                                                 (128, 64, 32, 32, 8)])
-def test_cluster_step_decomposition_equals_the_plain_step(H, enc_state, M, HL, C):
+def test_cluster_step_decomposition_equals_the_plain_step(H, enc_state, M, HL, C, rows):
     """In float64, at streams of 128 and 64 columns a CTA (the route serves
     128 only): the weight stream's column split, the per-CTA attention
     with its max / sum merge and the reduce-scattered context, the GRU and
     LSTM cells of each CTA's units and the logits as a sum of per-CTA
     partials give the plain step of ``beam_scan_plain`` (attention, the two
     speller cells, the character projection and the LM step) on random
-    states, ragged memory lengths (one of 1) included."""
+    states, ragged memory lengths (one of 1) included; over 6 rows, and
+    over the 16 rows of one utterance's 16 beams, which the route serves
+    where it serves 128 columns."""
     from ss_asr_tpu_torch.ops.kernels.beam import beam_route, cluster_plan
 
     cfg = las.ASRConfig(encoder_state_size=enc_state, decoder_state_size=H, mlp_out_size=M,
@@ -285,12 +288,13 @@ def test_cluster_step_decomposition_equals_the_plain_step(H, enc_state, M, HL, C
     lm.load_state_dict(convert.charlm_state_from_params(convert.init_charlm_numpy(6, lcfg)))
     model, lm = model.double().eval(), lm.double().eval()
     F, V = cfg.enc_out_dim, cfg.vocab_size
-    assert (cluster_plan(H, F, M, V, HL, 11, 3, C, 1) is not None) == (4 * H == 128 * C)
-    assert beam_route(H, F, M, V, HL, 11, 3, 6)[0] == 4 * H // 128
-    rng = np.random.default_rng(C)
-    Bn, S = 6, 11
+    K = 3 if rows == 6 else 16
+    assert (cluster_plan(H, F, M, V, HL, 11, K, C, 1) is not None) == (4 * H == 128 * C)
+    assert beam_route(H, F, M, V, HL, 11, K, 6)[0] == 4 * H // 128
+    rng = np.random.default_rng(C + rows)
+    Bn, S = rows, 11
     enc = rng.standard_normal((Bn, S, F))
-    lens = np.array([11, 1, 7, 3, 10, 6])
+    lens = np.resize([11, 1, 7, 3, 10, 6], Bn)
     last = rng.integers(0, V, Bn)
     st = [0.5 * rng.standard_normal((Bn, n)) for n in (H, H, H, H, HL, HL)]
     with torch.no_grad():
@@ -308,3 +312,71 @@ def test_cluster_step_decomposition_equals_the_plain_step(H, enc_state, M, HL, C
     want = (logits, lm_logits, state, lm_state)
     for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(jax.tree.map(lambda a: a.numpy(), want))):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-11)
+
+
+def split_top_k(cand, K):
+    """numpy model of the cluster route's top K (``beam_decode.cu``, phase
+    (f)) over one utterance's candidates [K, V]: each candidate's rank among
+    its beam's V (the better ones: a larger score, or an equal one at a
+    lower token), the K best of each beam kept in rank order; then each
+    survivor's rank over the K * K survivors, its own beam's better ones
+    plus, for each other beam, the length of the prefix of its sorted
+    survivors that beats it (a binary search; on equal scores a lower
+    beam's candidate is the better one).  -> (scores [K], flat indices [K])
+    of the picks, by rank."""
+    _, V = cand.shape
+    sv = np.zeros((K, K), cand.dtype)
+    si = np.zeros((K, K), np.int64)
+    for r in range(K):
+        for v in range(V):
+            x = cand[r, v]
+            rank = int(((cand[r] > x) | ((cand[r] == x) & (np.arange(V) < v))).sum())
+            if rank < K:
+                sv[r, rank], si[r, rank] = x, r * V + v
+    assert (sv[:, :-1] >= sv[:, 1:]).all()  # each beam's survivors sorted
+    top = np.zeros(K, cand.dtype)
+    idx = np.full(K, -1)
+    for r in range(K):
+        for j in range(K):
+            x, rank = sv[r, j], j
+            for r2 in range(K):
+                if r2 == r or rank >= K:
+                    continue
+                lo, hi = 0, K
+                while lo < hi:
+                    mid = (lo + hi) // 2
+                    y = sv[r2, mid]
+                    if y > x or (y == x and r2 < r):
+                        lo = mid + 1
+                    else:
+                        hi = mid
+                rank += lo
+            if rank < K:
+                assert idx[rank] == -1  # every rank below K taken once
+                top[rank], idx[rank] = x, si[r, j]
+    return top, idx
+
+
+@pytest.mark.parametrize("K", [9, 12, 16])
+def test_split_top_k_keeps_lax_top_k_order(K):
+    """The cluster route's top K without serial rounds picks what
+    ``jax.lax.top_k`` picks over the flattened K * V candidates, in its
+    order (ties to the lower flat index), on tie-heavy candidates: small
+    integers as float32, beams masked at the beam search's -1e30 (the
+    start, where only beam 0 is live) and finished beams whose only
+    candidate is SOS at their score."""
+    rng = np.random.default_rng(K)
+    V = 50
+    cases = [rng.integers(-3, 3, (K, V)).astype(np.float32) for _ in range(4)]
+    start = rng.integers(-2, 2, (K, V)).astype(np.float32)
+    start[1:] = np.float32(-1e30)
+    cases.append(start)
+    done = rng.integers(-4, 0, (K, V)).astype(np.float32)
+    done[::3] = np.float32(-1e30)
+    done[::3, 0] = rng.integers(-3, 0, len(done[::3])).astype(np.float32)
+    cases.append(done)
+    for cand in cases:
+        got, idx = split_top_k(cand, K)
+        want, want_i = jax.lax.top_k(jnp.asarray(cand.reshape(-1)), K)
+        np.testing.assert_array_equal(idx, np.asarray(want_i))
+        np.testing.assert_array_equal(got, np.asarray(want))

@@ -383,13 +383,15 @@ CLUSTER_SIZES = dict(encoder_state_size=32, decoder_state_size=64, mlp_out_size=
 
 
 @pytest.mark.parametrize("K,U,C", [(1, 1, 2), (1, 2, 2), (3, 1, 2), (3, 2, 2), (4, 2, 2), (8, 1, 2),
-                                   (3, 1, 4), (3, 2, 4), (8, 1, 4)])
+                                   (3, 1, 4), (3, 2, 4), (8, 1, 4), (9, 1, 2), (16, 1, 2),
+                                   (12, 1, 4), (16, 1, 4)])
 @pytest.mark.parametrize("use_lm", [False, True], ids=["beam", "beam+lm"])
 def test_beam_cluster_matches_plain(cuda, K, U, C, use_lm):
     """K8's cluster route (clusters of C CTAs with 128 gate columns each: H
     = 64 for 2, 128 for 4; one or two utterances a cluster, B = 5 so that a
-    cluster holds a missing utterance) against the plain frontier by the
-    near-tie rule, its counter, and a second run bit-equal to the first."""
+    cluster holds a missing utterance; K 9-16 on the 16-row variant) against
+    the plain frontier by the near-tie rule, its counter, and a second run
+    bit-equal to the first."""
     sizes = dict(CLUSTER_SIZES, decoder_state_size=32 * C)
     model, lm = _models(las.ASRConfig(**sizes), 32, 9, cuda)
     lm_ = lm if use_lm else None
@@ -409,7 +411,7 @@ def test_beam_cluster_matches_plain(cuda, K, U, C, use_lm):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("K,U", [(3, 1), (3, 2), (8, 1)])
+@pytest.mark.parametrize("K,U", [(3, 1), (3, 2), (8, 1), (16, 1)])
 @pytest.mark.parametrize("use_lm", [False, True], ids=["beam", "beam+lm"])
 def test_beam_cluster_long_memory_matches_plain(cuda, K, U, use_lm):
     """At the flagship width (clusters of 8), S = 1500 encoder steps: the
@@ -433,9 +435,9 @@ def test_beam_cluster_long_memory_matches_plain(cuda, K, U, use_lm):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("U", [1, 2])
+@pytest.mark.parametrize("K,U", [(4, 1), (4, 2), (16, 1)])
 @pytest.mark.parametrize("use_lm", [False, True], ids=["beam", "beam+lm"])
-def test_beam_cluster_early_exit(cuda, U, use_lm):
+def test_beam_cluster_early_exit(cuda, K, U, use_lm):
     """With an EOS bias of 50 every beam ends within two steps: the cluster
     route then writes SOS tokens and identity parents, equal to the plain
     frontier."""
@@ -446,8 +448,8 @@ def test_beam_cluster_early_exit(cuda, U, use_lm):
     lm_ = lm if use_lm else None
     with torch.inference_mode():
         enc_h, comp_h, enc_lens = _memory(model, np.random.default_rng(2), cuda, B=3, T=16)
-        got = kbeam.beam_device(model, enc_h, comp_h, enc_lens, 4, 9, lm_, 0.5, route=(2, U))
-        want = kbeam.beam_scan_plain(model, enc_h, comp_h, enc_lens, 4, 9, lm_, 0.5)
+        got = kbeam.beam_device(model, enc_h, comp_h, enc_lens, K, 9, lm_, 0.5, route=(2, U))
+        want = kbeam.beam_scan_plain(model, enc_h, comp_h, enc_lens, K, 9, lm_, 0.5)
     assert bool(got[3].all()) and (got[0][-1] == 0).all()
     for g, w in zip(got[:2] + got[3:], want[:2] + want[3:]):
         assert torch.equal(g, w)
@@ -460,7 +462,7 @@ def test_beam_takes_the_route_of_its_shape_and_refuses_one_that_does_not_serve(c
     assert kbeam.beam_route(H, F, M, V, 128, 64, 3, 8) == (8, 1)
     assert kbeam.beam_route(H, F, M, V, 128, 64, 3, 16) == (8, 2)
     assert kbeam.beam_route(H, F, M, V, 128, 64, 8, 16) == (8, 1)  # K > 4: 8 rows, 16 clusters
-    assert kbeam.beam_route(H, F, M, V, 128, 64, 16, 8) == (0, 0)
+    assert kbeam.beam_route(H, F, M, V, 128, 64, 16, 8) == (8, 1)  # the 16-row variant
     model, lm = _models(las.ASRConfig(**CLUSTER_SIZES), 32, 3, cuda)
     with torch.inference_mode():
         enc_h, comp_h, enc_lens = _memory(model, np.random.default_rng(5), cuda, B=3, T=16)
@@ -468,10 +470,57 @@ def test_beam_takes_the_route_of_its_shape_and_refuses_one_that_does_not_serve(c
         by_shape = kbeam.beam_device(model, enc_h, comp_h, enc_lens, 3, 6, lm, 0.5)
         assert kbeam.LAUNCHES["beam_decode_lm_cluster"] == before + 1
         kbeam.beam_device(model, enc_h, comp_h, enc_lens, 16, 6, lm, 0.5)
-        assert kbeam.LAUNCHES["beam_decode_lm_cluster"] == before + 1
+        assert kbeam.LAUNCHES["beam_decode_lm_cluster"] == before + 2
         with pytest.raises(ValueError, match="serves"):
             kbeam.beam_device(model, enc_h, comp_h, enc_lens, 3, 6, lm, 0.5, route=(2, 4))
     assert by_shape[0].shape == (6, 3, 3)
+
+
+@pytest.mark.parametrize("K,U,S", [(3, 2, 20000), (16, 1, 8000)])
+@pytest.mark.parametrize("use_lm", [False, True], ids=["beam", "beam+lm"])
+def test_beam_cluster_global_attention_scratch_matches_plain(cuda, K, U, S, use_lm):
+    """At the flagship width, memory long enough that the cluster route's
+    plan puts the attention weights in the global scratch: against the
+    plain frontier, and a second run bit-equal to the first."""
+    model, lm = _models(las.ASRConfig(), 128, 15, cuda)
+    cfg = model.cfg
+    plan = kbeam.cluster_plan(cfg.decoder_state_size, cfg.enc_out_dim, cfg.mlp_out_size,
+                              cfg.vocab_size, 128 if use_lm else 0, S, K, 8, U)
+    assert plan is not None and not plan[1]
+    lm_ = lm if use_lm else None
+    rng = np.random.default_rng(16)
+    enc_h = torch.from_numpy(
+        rng.standard_normal((3, S, cfg.enc_out_dim)).astype(np.float32)).to(cuda)
+    enc_lens = torch.tensor([S, S // 3, 1], dtype=torch.int32, device=cuda)
+    with torch.inference_mode():
+        comp_h = las.attention_precompute(model.attention, enc_h)
+        got = kbeam.beam_device(model, enc_h, comp_h, enc_lens, K, 8, lm_, 0.5, route=(8, U))
+        want = kbeam.beam_scan_plain(model, enc_h, comp_h, enc_lens, K, 8, lm_, 0.5)
+        cands = replay_frontier(torch, model, lm_, 0.5, enc_h, comp_h, enc_lens, *want[:2])[0]
+        again = kbeam.beam_device(model, enc_h, comp_h, enc_lens, K, 8, lm_, 0.5, route=(8, U))
+    _assert_frontier_matches(got, want, frontier_gaps(torch, cands, K, 8))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_beam_cluster_plan_of_the_kernel_equals_its_mirror(cuda):
+    """``cluster_plan`` in Python against the one ``csrc/beam_decode.cu``
+    launches with (``ss_beam_cluster_plan``, from the card's shared memory a
+    block) at the flagship width: floats, the attention's place and the
+    ring stages, or no plan, for K 1-16, with and without the LM, one and
+    two utterances a cluster, S = 64, 1500 and 8000."""
+    cfg = las.ASRConfig()
+    dims = (cfg.decoder_state_size, cfg.enc_out_dim, cfg.mlp_out_size, cfg.vocab_size)
+    served = 0
+    for K in range(1, 17):
+        for HL in (0, 128):
+            for U in (1, 2):
+                for S in (64, 1500, 8000):
+                    want = kbeam.cluster_plan(*dims, HL, S, K, 8, U)
+                    got = kbeam.device_cluster_plan(*dims, HL, S, K, 8, U, cuda)
+                    assert got == want, (K, HL, U, S)
+                    served += want is not None
+    assert served == 16 * 2 * 3 + 4 * 2 * 3  # U = 1 at every K, U = 2 at K <= 4
 
 
 @pytest.mark.parametrize("use_lm", [False, True], ids=["beam", "beam+lm"])

@@ -35,7 +35,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 #: every kernel wrapper of the port
 WRAPPERS = [klstm.lstm_fwd, klstm.lstm_bwd, klstm.resident_clusters, kdecode.greedy_decode,
-            kbeam.beam_device, kspell.spell_fwd, kspell.spell_bwd, kfrontend.fbank]
+            kbeam.beam_device, kbeam.device_cluster_plan, kspell.spell_fwd, kspell.spell_bwd,
+            kfrontend.fbank]
 
 
 def _modules():

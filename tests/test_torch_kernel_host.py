@@ -249,38 +249,45 @@ def test_fwd_cluster_decomposition_equals_the_plain_forward(rng, reverse, C, R):
         np.testing.assert_allclose(g, w.numpy(), rtol=0, atol=1e-12)
 
 
-@pytest.mark.parametrize("K", [1, 3, 4, 5, 8, 16])
+@pytest.mark.parametrize("K", [1, 3, 4, 5, 8, 9, 10, 11, 12, 13, 14, 15, 16])
 @pytest.mark.parametrize("B", [1, 8, 16, 32])
 @pytest.mark.parametrize("lm_hidden", [0, 128])
 def test_beam_route_by_shape(K, B, lm_hidden):
     """K8's route at the flagship width: clusters of 8 CTAs (128 gate
-    columns each) for K <= 8, one utterance a cluster while all clusters are
-    resident at once (15 of 8 CTAs), else two where the 8 rows hold them (K
-    <= 4); one block per utterance above K = 8; the shared-memory plan of the
-    route's variant fits."""
+    columns each) for every K, one utterance a cluster while all clusters
+    are resident at once (15 of 8 CTAs), else two where the 8 rows hold them
+    (K <= 4); K 9-16 take the 16-row variant, one utterance a cluster
+    whatever the batch, at S = 64 and at S = 1500 (120 s); the shared-memory
+    plan of the route's variant fits with at least three ring stages."""
     from ss_asr_tpu_torch.ops.kernels import beam as kbeam
 
-    C, U = kbeam.beam_route(256, 512, 128, 50, lm_hidden, 64, K, B)
-    if K > 8:
-        assert (C, U) == (0, 0)
-        return
-    assert (C, U) == (8, 1 if B <= 15 or K > 4 else 2)
-    floats, att_in_smem, stages = kbeam.cluster_plan(256, 512, 128, 50, lm_hidden, 64, K, C, U)
-    assert floats <= kbeam.SMEM_FLOATS and att_in_smem and 3 <= stages <= kbeam.MAX_STAGES
+    for S in (64, 1500) if K > 8 else (64,):
+        C, U = kbeam.beam_route(256, 512, 128, 50, lm_hidden, S, K, B)
+        assert (C, U) == (8, 1 if B <= 15 or K > 4 else 2)
+        floats, att_in_smem, stages = kbeam.cluster_plan(256, 512, 128, 50, lm_hidden, S, K, C, U)
+        assert floats <= kbeam.SMEM_FLOATS and att_in_smem and 3 <= stages <= kbeam.MAX_STAGES
 
 
 def test_beam_cluster_plan_refuses_what_it_does_not_serve():
     from ss_asr_tpu_torch.ops.kernels import beam as kbeam
 
-    assert kbeam.cluster_plan(256, 512, 128, 50, 128, 64, 16, 8, 1) is None   # 16 rows
+    assert kbeam.cluster_plan(256, 512, 128, 50, 128, 64, 16, 8, 2) is None   # 2 x 16 rows
+    assert kbeam.cluster_plan(256, 512, 128, 50, 0, 64, 9, 8, 2) is None      # U = 2 at K > 8
+    assert kbeam.cluster_plan(256, 512, 128, 50, 128, 64, 8, 8, 2) is None    # 2 x 8 rows
     assert kbeam.cluster_plan(256, 512, 128, 50, 128, 64, 3, 8, 4) is None    # 4 x 4 rows
+    assert kbeam.cluster_plan(256, 512, 128, 50, 128, 64, 17, 8, 1) is None   # K = 17
+    assert kbeam.cluster_plan(256, 512, 128, 12, 128, 64, 16, 8, 1) is None   # V < K
+    assert kbeam.cluster_plan(256, 4096, 128, 50, 0, 64, 16, 8, 1) is None    # F / C > 128 at 16 rows
     assert kbeam.cluster_plan(256, 512, 128, 50, 128, 64, 3, 4, 1) is None    # 256 columns
     assert kbeam.cluster_plan(40, 48, 300, 50, 36, 20, 3, 1, 1) is None       # H = 40
     assert kbeam.cluster_plan(256, 512, 128, 50, 256, 64, 3, 8, 1) is None    # 6 HL / C > 128
     assert kbeam.cluster_plan(256, 512, 128, 50, 128, 64, 3, 16, 1) is None      # 64 columns
-    # the attention weights stay in shared memory to S = 1500 (120 s), past it in the
-    # global scratch, whose size the wrapper derives from the plan
-    plans = [kbeam.cluster_plan(256, 512, 128, 50, 128, S, 3, 8, 2) for S in (64, 1500, 8000)]
+    # the attention weights stay in shared memory to S = 1500 (120 s) and on to 10,000
+    # steps, past that in the global scratch, whose size the wrapper derives from the plan
+    plans = [kbeam.cluster_plan(256, 512, 128, 50, 128, S, 3, 8, 2) for S in (64, 1500, 16000)]
+    assert [p[1] for p in plans] == [True, True, False] and all(p[2] >= 3 for p in plans)
+    # at 16 rows to 1500 steps, past that in the global scratch
+    plans = [kbeam.cluster_plan(256, 512, 128, 50, 128, S, 16, 8, 1) for S in (64, 1500, 8000)]
     assert [p[1] for p in plans] == [True, True, False] and all(p[2] >= 3 for p in plans)
 
 
